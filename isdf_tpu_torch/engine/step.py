@@ -1,0 +1,286 @@
+"""The training engine: one optimisation step, bundles of steps, and the
+keyframe test (isdf_tpu/engine/step.py in eager torch).
+
+Each step selects the keyframe window (Gumbel top-k over log replay
+priorities, reference trainer.py:652-674), samples pixels and depths,
+gathers the pixels from the arena, runs the fused train op
+(models/cuda_mlp.py: the hand-written CUDA kernel on the card, its plain
+version on the CPU), applies AdamW on the packed parameter planes and
+writes the per-frame losses back for replay priority.
+
+A bundle is a plain loop of steps. Step t of the run draws from its own
+generator seeded from (seed, global step), so a trajectory does not depend
+on how steps are cut into bundles. Parameters, optimiser state and the
+arena's priority rows are updated in place.
+
+``grad_mode: "pallas"`` selects the fused train op. The TPU-only knobs are
+parsed and have no effect here: tpu.use_pallas, tpu.pallas_interpret,
+tpu.remat, tpu.compute_dtype, the ISDF_PALLAS_TM / ISDF_PALLAS_FAST32
+environment variables and the scoped-VMEM compiler option.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from isdf_tpu_torch.engine.buffer import FrameBuffer
+from isdf_tpu_torch.models import sdf_mlp as M
+from isdf_tpu_torch.models.cuda_mlp import make_train_op
+from isdf_tpu_torch.models.fused_adamw import make_fused_adamw
+from isdf_tpu_torch.ops import bounds as B
+from isdf_tpu_torch.ops import losses as L
+from isdf_tpu_torch.ops import render as R
+from isdf_tpu_torch.ops import sampling as S
+from isdf_tpu_torch.utils.config import Config
+
+_MASK64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """splitmix64 of (seed, step): the generator seed of one global step."""
+    z = (seed * 0x9E3779B97F4A7C15 + step + 1) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) & ((1 << 63) - 1)
+
+
+def select_window(gen, count: int, frame_avg_loss, window_size: int,
+                  tail: bool = False, g=None):
+    """The active keyframe window (reference trainer.py:652-674): the two
+    newest frames plus window_size-2 older ones drawn without replacement
+    with p proportional to their average loss (Gumbel top-k). With
+    <= window_size frames the window is all frames plus masked padding.
+    ``tail``: the refinement tail draws the whole window from all
+    keyframes. ``g``: the [C] Gumbel draws (always drawn, so the
+    generator's stream does not depend on the branch taken).
+
+    Returns (idxs [window_size] int64, valid [window_size] bool)."""
+    C = frame_avg_loss.shape[0]
+    dev = frame_avg_loss.device
+    if g is None:
+        g = S.gumbel(gen, (C,), dev)
+    ar = torch.arange(window_size, device=dev)
+    if count <= window_size:
+        return ar, ar < count
+    logits = torch.log(frame_avg_loss.clamp(min=1e-30))
+    pos = torch.arange(C, device=dev)
+    ones = torch.ones(window_size, dtype=torch.bool, device=dev)
+    if not tail:
+        logits = torch.where(pos < count - 2, logits, -torch.inf)
+        top = torch.topk(logits + g, window_size - 2).indices
+        newest = torch.tensor([count - 2, count - 1], device=dev)
+        return torch.cat([top, newest]), ones
+    logits = torch.where(pos < count, logits, -torch.inf)
+    kk = min(window_size, C)
+    top = torch.topk(logits + g, kk).indices
+    pad = torch.zeros(window_size - kk, dtype=top.dtype, device=dev)
+    return torch.cat([top, pad]), ones
+
+
+class StepFunctions:
+    """The engine specialised to a config, a model and a camera."""
+
+    def __init__(self, cfg: Config, model: M.SDFModel, H: int, W: int,
+                 dirs_C_img, device):
+        self.cfg, self.model, self.H, self.W = cfg, model, H, W
+        self.device = torch.device(device)
+        self.dirs = dirs_C_img.to(self.device)
+        do_sdf_grad = cfg.eik_weight != 0 or cfg.grad_weight != 0
+        if cfg.grad_mode != "pallas" or not do_sdf_grad:
+            raise NotImplementedError(
+                "only the fused train op is ported (grad_mode 'pallas' with "
+                "eikonal or gradient losses); grad_mode "
+                f"{cfg.grad_mode!r} is not")
+        if not cfg.pe_in_kernel:
+            raise NotImplementedError(
+                "the streamed-PE train op (pe_in_kernel=False) is not "
+                "ported yet")
+        if cfg.bounds_method not in ("ray", "pc"):
+            raise NotImplementedError(
+                f"bounds_method {cfg.bounds_method!r} is not ported yet")
+        if cfg.data_parallel > 1:
+            raise NotImplementedError("data parallelism is not ported yet")
+        self.pc_in_kernel = cfg.pc_in_kernel and cfg.bounds_method == "pc"
+        self.train_op = make_train_op(
+            model, loss_type=cfg.loss_type,
+            trunc_distance=cfg.trunc_distance,
+            trunc_weight=cfg.trunc_weight,
+            eik_apply_dist=cfg.eik_apply_dist, eik_weight=cfg.eik_weight,
+            grad_weight=cfg.grad_weight, orien_loss=cfg.orien_loss,
+            pc_bounds=self.pc_in_kernel)
+        self.uses_kernel = self.device.type == "cuda"
+        self.adamw = make_fused_adamw(cfg.lr, cfg.weight_decay,
+                                      b1=0.9, b2=0.999, eps=1e-8)
+
+    # ---------------- one step ----------------
+    def surf_set(self, gen, pc, valid):
+        """Surface set for the batch-distance bounds, capped at
+        cfg.pc_surf_budget points (valid-first random subsample)."""
+        surf = pc[:, 0]
+        budget = self.cfg.pc_surf_budget
+        if not budget or budget >= surf.shape[0]:
+            return surf, valid
+        score = valid.float() * 2.0 + torch.rand(
+            surf.shape[0], generator=gen, device=pc.device)
+        sel = torch.topk(score, budget).indices
+        return surf[sel], valid[sel]
+
+    def loss_and_grad(self, params, transform, pc, z_vals, dirs_C, dirs_W,
+                      depth, normals, valid, noise, surf=None, sv=None):
+        """The fused train op on one sampled batch -> (scalars, ploss
+        [R, S], (dW, db))."""
+        cfg = self.cfg
+        R_, S_, _ = pc.shape
+        N = R_ * S_
+        flat = pc.reshape(N, 3).contiguous()
+        vflat = valid[:, None].expand(R_, S_).reshape(-1).float()
+        C = S_ * valid.sum()
+        invC = torch.where(C > 0, 1.0 / C.clamp(min=1).float(),
+                           torch.zeros((), device=pc.device))
+        if self.pc_in_kernel:
+            zd = (z_vals - depth[:, None]).reshape(-1)
+            normals_pt = normals[:, None, :].expand(R_, S_, 3).reshape(N, 3)
+            is_surf = torch.zeros((R_, S_), device=pc.device)
+            is_surf[:, 0] = 1.0
+            sums, ploss, grads = self.train_op(
+                params, transform, flat, surf.contiguous(),
+                sv.float().contiguous(), zd.contiguous(),
+                normals_pt.contiguous(), is_surf.reshape(-1), vflat, noise,
+                invC)
+        else:
+            bnd = B.compute_bounds(
+                cfg.bounds_method, dirs_C, depth, dirs_W, z_vals, pc,
+                cfg.trunc_distance, normals, valid,
+                do_grad=cfg.grad_weight != 0, surf=surf, surf_valid=sv)
+            if cfg.grad_weight != 0:
+                gv = bnd.grad
+                if bnd.grad_valid is not None:
+                    gv = torch.where(bnd.grad_valid[..., None], gv,
+                                     normals[:, None, :])
+                gt = torch.cat([normals[:, None, :], gv], dim=1).reshape(N, 3)
+            else:
+                gt = torch.zeros((N, 3), device=pc.device)
+            sums, ploss, grads = self.train_op(
+                params, transform, flat, bnd.bounds.reshape(-1).contiguous(),
+                vflat, noise, gt.contiguous(), invC)
+        scalars = {"sdf_loss": sums[1] * invC, "total_loss": sums[0] * invC}
+        if cfg.grad_weight != 0:
+            scalars["grad_loss"] = sums[2] * invC
+        if cfg.eik_weight != 0:
+            scalars["eikonal_loss"] = sums[3] * invC
+        return scalars, ploss.reshape(R_, S_), grads
+
+    def update(self, params, opt_state, buf: FrameBuffer, grads, ploss,
+               idxs, slot_valid, ib, ih, iw, valid, lr_scale):
+        """AdamW on the packed planes, then the replay-priority write-back
+        (reference trainer.py:979): per-frame average loss over an 8x8
+        block pooling of the ray losses."""
+        self.adamw(params, {"Wp": grads[0], "bp": grads[1]}, opt_state,
+                   lr_scale)
+        ray_loss = ploss.sum(-1)
+        loss_approx, frame_avg = L.frame_avg_loss(
+            ray_loss, valid, ib, ih, iw, self.cfg.window_size, self.H,
+            self.W, factor=8)
+        C = buf.frame_avg_loss.shape[0]
+        dev = ploss.device
+        sums = torch.zeros(C, device=dev).index_add_(
+            0, idxs, torch.where(slot_valid, frame_avg, 0.0))
+        cnts = torch.zeros(C, device=dev).index_add_(
+            0, idxs, slot_valid.float())
+        buf.frame_avg_loss.copy_(torch.where(
+            cnts > 0, sums / cnts.clamp(min=1.0), buf.frame_avg_loss))
+        buf.loss_approx[idxs] = torch.where(
+            slot_valid[:, None, None], loss_approx, buf.loss_approx[idxs])
+
+    def core(self, params, opt_state, buf: FrameBuffer, transform, gen,
+             noise_std: float, lr_scale: float, tail: bool):
+        cfg = self.cfg
+        Wn, n_rays, H, W = cfg.window_size, cfg.n_rays, self.H, self.W
+        dev = self.device
+        idxs, slot_valid = select_window(gen, buf.count, buf.frame_avg_loss,
+                                         Wn, tail=tail)
+        if cfg.do_active:
+            ib, ih, iw = S.sample_pixels_active(
+                gen, n_rays, Wn, H, W, buf.loss_approx[idxs],
+                cfg.active_frac)
+        else:
+            ib, ih, iw = S.sample_pixels(gen, n_rays, Wn, H, W, dev)
+        gi = idxs[ib]
+        depth = buf.depth[gi, ih, iw]
+        valid = (depth != 0.0) & slot_valid[ib]
+        if cfg.do_normal:
+            normals = buf.normals[gi, ih, iw]
+            valid &= ~torch.isnan(normals[..., 0])
+            normals = torch.nan_to_num(normals)
+        else:
+            normals = torch.zeros((depth.shape[0], 3), device=dev)
+        depth_safe = torch.where(valid, depth, 1.0)
+        dirs_C = self.dirs[ih, iw]
+        pc, z_vals, _, dirs_W = S.sample_along_rays(
+            gen, buf.T_WC[gi], dirs_C, depth_safe, cfg.min_depth,
+            cfg.dist_behind_surf, cfg.n_strat_samples, cfg.n_surf_samples)
+        noise = torch.randn(pc.shape[0] * pc.shape[1], generator=gen,
+                            device=dev) * noise_std
+        surf = sv = None
+        if cfg.bounds_method == "pc":
+            surf, sv = self.surf_set(gen, pc, valid)
+        scalars, ploss, grads = self.loss_and_grad(
+            params, transform, pc, z_vals, dirs_C, dirs_W, depth_safe,
+            normals, valid, noise, surf=surf, sv=sv)
+        self.update(params, opt_state, buf, grads, ploss, idxs, slot_valid,
+                    ib, ih, iw, valid, lr_scale)
+        return scalars
+
+    @torch.no_grad()
+    def train_bundle(self, params, opt_state, buf: FrameBuffer, transform,
+                     seed: int, noise_std: float, n_steps: int = 1,
+                     lr_scale: float = 1.0, tail: bool = False,
+                     step0: int = 0) -> Dict[str, torch.Tensor]:
+        """Run n_steps steps in place; returns the per-step scalars stacked
+        [n_steps] on the device. Step step0 + t draws from a generator
+        seeded with step_seed(seed, step0 + t)."""
+        out = []
+        gen = torch.Generator(device=self.device)
+        for t in range(n_steps):
+            gen.manual_seed(step_seed(seed, step0 + t))
+            out.append(self.core(params, opt_state, buf, transform, gen,
+                                 noise_std, lr_scale, tail))
+        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+
+    # ---------------- keyframe decision ----------------
+    @torch.no_grad()
+    def is_keyframe(self, params, depth_img, T_WC, transform, gen,
+                    noise_std: float):
+        """Render the candidate frame through the frozen net and test the
+        fraction of rays whose relative depth error is under threshold
+        (reference trainer.py:586-620; noise on during the check).
+        Returns (is_keyframe, below-threshold proportion)."""
+        cfg = self.cfg
+        ib, ih, iw = S.sample_pixels(gen, cfg.n_rays_is_kf, 1, self.H,
+                                     self.W, self.device)
+        depth = depth_img[ih, iw]
+        valid = depth != 0.0
+        depth_safe = torch.where(valid, depth, 1.0)
+        T = T_WC.expand(depth.shape[0], 4, 4)
+        pc, z_vals, _, _ = S.sample_along_rays(
+            gen, T, self.dirs[ih, iw], depth_safe, cfg.min_depth,
+            0.8,  # the reference hard-codes dist_behind_surf=0.8 here
+            cfg.n_strat_samples, cfg.n_surf_samples)
+        sdf = M.apply_with_noise(params, pc, self.model, gen, noise_std,
+                                 transform=transform)
+        z_sorted, sdf_sorted = R.sort_by_z(z_vals, sdf)
+        view_depth = R.sdf_render_depth(z_sorted, sdf_sorted)
+        err = (view_depth - depth_safe).abs() / depth_safe
+        below = (err < cfg.kf_dist_th) & valid
+        prop = float(below.sum()) / max(int(valid.sum()), 1)
+        return prop < cfg.kf_pixel_ratio, prop
+
+    # ---------------- queries ----------------
+    @torch.no_grad()
+    def eval_sdf(self, params, pts, transform):
+        return M.apply(params, pts, self.model, transform=transform)
+
+    def eval_sdf_grad(self, params, pts, transform):
+        return M.sdf_and_grad(params, pts, self.model, transform=transform)[1]

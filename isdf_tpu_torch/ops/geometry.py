@@ -1,0 +1,92 @@
+"""Camera / 3-D geometry ops (isdf_tpu/ops/geometry.py in torch).
+
+Conventions: camera rays use the z-depth convention (z component == 1);
+poses are T_WC (camera-to-world) 4x4 row-major matrices; invalid pixels
+carry NaN through backprojection and normal estimation and become explicit
+masks at the sampling boundary.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def ray_dirs_C(H: int, W: int, fx, fy, cx, cy, device="cpu"):
+    """Per-pixel camera-frame ray directions [H, W, 3] (z = 1)."""
+    c = torch.arange(W, dtype=torch.float32, device=device)[None, :]
+    r = torch.arange(H, dtype=torch.float32, device=device)[:, None]
+    x = ((c - cx) / fx).expand(H, W)
+    y = ((r - cy) / fy).expand(H, W)
+    z = torch.ones((H, W), dtype=torch.float32, device=device)
+    return torch.stack((x, y, z), dim=-1)
+
+
+def origin_dirs_W(T_WC, dirs_C):
+    """Rotate camera-frame dirs into the world frame; origins are the
+    translations. T_WC [..., 4, 4]; dirs_C [..., 3]."""
+    dirs_W = (T_WC[..., :3, :3] @ dirs_C[..., None])[..., 0]
+    return T_WC[..., :3, 3], dirs_W
+
+
+def transform_points(T, points):
+    """Apply a rigid transform [4, 4] (or a batch) to points [..., 3]."""
+    return (T[..., :3, :3] @ points[..., None])[..., 0] + T[..., :3, 3]
+
+
+def pointcloud_from_depth(depth, fx, fy, cx, cy):
+    """Backproject a depth map [H, W] to a pointcloud [H, W, 3]; NaN depth
+    gives NaN points."""
+    H, W = depth.shape
+    c = torch.arange(W, dtype=depth.dtype, device=depth.device)[None, :]
+    r = torch.arange(H, dtype=depth.dtype, device=depth.device)[:, None]
+    return torch.stack((depth * (c - cx) / fx, depth * (r - cy) / fy, depth),
+                       dim=-1)
+
+
+def estimate_pointcloud_normals(points, d: int = 2):
+    """Normals of an organised pointcloud [H, W, 3] from the best of the 8
+    neighbour pairs (k, k+2 mod 8) at distance ``d``: the pair with the
+    least total distance to the anchor, NaN neighbours never chosen, NaN
+    where no valid pair exists (reference transform.py:215-270)."""
+    H, W = points.shape[:2]
+    pad = torch.full((H + 2 * d, W + 2 * d, 3), float("nan"),
+                     dtype=points.dtype, device=points.device)
+    pad[d:-d, d:-d] = points
+    lookups = [(-d, 0), (-d, d), (0, d), (d, d),
+               (d, 0), (d, -d), (0, -d), (-d, -d)]
+
+    def shifted(off):
+        dy, dx = off
+        return pad[d + dy:d + dy + H, d + dx:d + dx + W]
+
+    p1 = points
+    p2s = torch.stack([shifted(lookups[k]) for k in range(8)])
+    p3s = torch.stack([shifted(lookups[(k + 2) % 8]) for k in range(8)])
+    diff = ((p2s - p1[None]).norm(dim=-1) + (p3s - p1[None]).norm(dim=-1))
+    diff = torch.where(torch.isnan(diff), torch.inf, diff)
+    k_best = diff.argmin(dim=0)[None, ..., None].expand(1, H, W, 3)
+    p2 = torch.gather(p2s, 0, k_best)[0]
+    p3 = torch.gather(p3s, 0, k_best)[0]
+    n = torch.linalg.cross(p2 - p1, p3 - p1)
+    return n / n.norm(dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# host-side helpers (numpy)
+# ---------------------------------------------------------------------------
+
+def look_at(eye, target=None, up=None):
+    """Camera pose from eye/target/up, OpenCV-style (camera z points at the
+    target). Returns (R [3,3], t [3]) (reference transform.py:49-101)."""
+    eye = np.asarray(eye, dtype=float)
+    target = np.zeros(3) if target is None else np.asarray(target, float)
+    up = np.array([0.0, 0.0, -1.0]) if up is None else np.asarray(up, float)
+
+    def _n(v):
+        return v / np.linalg.norm(v)
+
+    z_axis = _n(target - eye)
+    x_axis = _n(np.cross(up, z_axis))
+    y_axis = _n(np.cross(z_axis, x_axis))
+    return np.vstack((x_axis, y_axis, z_axis)).T, eye

@@ -1,0 +1,188 @@
+"""The port's CUDA kernel on the card, and its wrapper's contract.
+
+This file imports neither jax nor isdf_tpu, so it also runs on a machine
+with a GPU and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+
+Tests marked ``cuda`` skip without a CUDA device: the kernel has no CPU
+mode. Kernel vs plain version tolerances (both with bf16 hidden products)
+are about 10x the largest gap read on an H100 at this test's size, N =
+5,400 points (PERF.md, Findings PR 1): loss sums 1.5e-4 relative (read:
+1.5e-5), per-point loss 5e-3 of its largest magnitude (read: 8.4e-4), and
+each gradient block (a layer's weight rows, the skip layer's pe rows
+apart, and a layer's bias) 1.5e-3 of its own largest magnitude (read:
+1.4e-4). chip_smoke.py holds the full-size call (N = 27,000) tighter.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from isdf_tpu_torch.models import cuda_mlp as K
+from isdf_tpu_torch.models import sdf_mlp as TM
+
+KW = dict(loss_type="L1", trunc_distance=0.29365022, trunc_weight=5.3834402,
+          eik_apply_dist=0.1, eik_weight=0.268, grad_weight=0.018,
+          orien_loss=False)
+TOL_SUMS_REL, TOL_PLOSS, TOL_GRAD = 1.5e-4, 5e-3, 1.5e-3
+
+
+def _inputs(device, R=200, S=27, seed=0):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5, 0.5, (R, 3))
+    d = rng.normal(size=(R, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    depth = rng.uniform(0.8, 3.0, R)
+    z = np.sort(rng.uniform(0.07, 1.0, (R, S)) * (depth[:, None] + 0.1), 1)
+    z[:, 0] = depth
+    pc = o[:, None] + d[:, None] * z[..., None]
+    valid = rng.random(R) > 0.1
+    nrm = rng.normal(size=(R, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    N = R * S
+    f = dict(pts=pc.reshape(N, 3), surf=pc[:, 0], surf_valid=valid,
+             zd=(z - depth[:, None]).reshape(N),
+             normals_pt=np.repeat(nrm, S, 0),
+             is_surf=np.tile(np.eye(1, S)[0], R),
+             valid=np.repeat(valid, S), noise=rng.normal(size=N) * 0.04,
+             bounds=(depth[:, None] - z).reshape(N),
+             gt=np.repeat(-d, S, 0))
+    out = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+           .contiguous() for k, v in f.items()}
+    out["inv_count"] = torch.tensor(1.0 / float(out["valid"].sum()),
+                                    device=device)
+    return out
+
+
+def _args(params, T, x, pc):
+    if pc:
+        return (params, T, x["pts"], x["surf"], x["surf_valid"], x["zd"],
+                x["normals_pt"], x["is_surf"], x["valid"], x["noise"],
+                x["inv_count"])
+    return (params, T, x["pts"], x["bounds"], x["valid"], x["noise"],
+            x["gt"], x["inv_count"])
+
+
+def _setup(device):
+    model = TM.SDFModel()
+    params = TM.init_params(torch.Generator().manual_seed(0), model,
+                            device=device)
+    T = torch.eye(4, device=device)
+    T[:3, 3] = torch.tensor([0.1, -0.2, 0.3], device=device)
+    return model, params, T, _inputs(device)
+
+
+def _blocks(model, dW, db):
+    H = model.hidden_size
+    out = []
+    for l, (w, b) in enumerate(TM.unpack({"Wp": dW, "bp": db}, model)):
+        out += [w[:H], w[H:], b] if l == model.cat_idx else [w, b]
+    return out
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc,loss_type,orien", [
+    (True, "L1", False), (False, "L1", False), (True, "L2", False),
+    (False, "L2", True)])
+def test_kernel_matches_plain_on_card(pc, loss_type, orien):
+    _need_card()
+    model, params, T, x = _setup("cuda")
+    kn = dict(KW, loss_type=loss_type, orien_loss=orien)
+    op = K.make_train_op(model, **kn, pc_bounds=pc)
+    name = "K1-pc" if pc else "K1-ray"
+    n0 = K.LAUNCHES[name]
+    ks, kp, (kdw, kdb) = op(*_args(params, T, x, pc))
+    assert K.LAUNCHES[name] == n0 + 1
+    M, dxs, dproj2 = TM._pe_consts(model, T, device="cuda")
+    lk = K._loss_knobs(model, free_space_factor=5.0, **kn)
+    kw = (dict(surf=x["surf"], surf_valid=x["surf_valid"], zd=x["zd"],
+               normals_pt=x["normals_pt"], is_surf=x["is_surf"])
+          if pc else dict(bounds=x["bounds"], gt=x["gt"]))
+    ps, pp, (pdw, pdb) = K.train_op_plain(
+        params, model, lk, M, K.tangent_rows(model, dxs, dproj2), x["pts"],
+        x["valid"], x["noise"], x["inv_count"], **kw)
+    torch.cuda.synchronize()
+    sums_rel = ((ks - ps).abs() / ps.abs()).max().item()
+    assert sums_rel <= TOL_SUMS_REL, sums_rel
+    for a in (kp, kdw, kdb):
+        assert torch.isfinite(a).all()
+    ploss_err = ((kp - pp).abs().max() / pp.abs().max()).item()
+    assert ploss_err <= TOL_PLOSS, ploss_err
+    errs = [((a - r).abs().max() / r.abs().max()).item() for a, r in zip(
+        _blocks(model, kdw, kdb), _blocks(model, pdw, pdb))]
+    assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_on_card():
+    """No atomics: two calls on the same inputs give the same bits."""
+    _need_card()
+    model, params, T, x = _setup("cuda")
+    op = K.make_train_op(model, **KW, pc_bounds=True)
+    a = op(*_args(params, T, x, True))
+    b = op(*_args(params, T, x, True))
+    for u, v in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2])):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_trainer_launches_the_kernel_once_per_step_on_card():
+    _need_card()
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import Config
+    cam = Config().camera.__class__(160, 120, 100.0, 100.0, 79.5, 59.5)
+    cfg = Config().replace(dataset_format="synthetic", bounds_method="pc",
+                           kf_buffer_size=16, camera=cam)
+    tr = Trainer(cfg)
+    assert tr.device.type == "cuda" and tr.fns.uses_kernel
+    tr._per_step_device_s = 1.0 / 300
+    tr._bill_exact = True
+    n0 = K.LAUNCHES["K1-pc"]
+    res = train_loop(tr, max_steps=40)
+    assert K.LAUNCHES["K1-pc"] - n0 == res.steps == 40
+
+
+def test_wrapper_refuses_cpu_tensors():
+    """The kernel path takes CUDA tensors only; CPU tensors go to the plain
+    version through make_train_op, never into the kernel."""
+    model, params, T, x = _setup("cpu")
+    M, dxs, dproj2 = TM._pe_consts(model, T)
+    lk = K._loss_knobs(model, free_space_factor=5.0, **KW)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.train_op_cuda(params, model, lk, M,
+                        K.tangent_rows(model, dxs, dproj2), x["pts"],
+                        x["valid"], x["noise"], x["inv_count"],
+                        bounds=x["bounds"], gt=x["gt"])
+
+
+def test_plain_version_on_cpu_never_counts_a_launch():
+    model, params, T, x = _setup("cpu")
+    before = dict(K.LAUNCHES)
+    sums, ploss, (dW, db) = K.make_train_op(model, **KW, pc_bounds=True)(
+        *_args(params, T, x, True))
+    assert K.LAUNCHES == before
+    assert ploss.shape == (x["pts"].shape[0],)
+    assert dW.shape == params["Wp"].shape
+    assert torch.isfinite(sums).all() and sums[4] == x["valid"].sum()
+
+
+def test_profile_step_reads_idle_share_from_trace_intervals(tmp_path):
+    """busy_us is the union of kernel intervals: overlaps count once."""
+    import json
+    from isdf_tpu_torch.train import profile_step as P
+    ev = [dict(cat="kernel", ph="X", ts=0, dur=10, name="a"),
+          dict(cat="kernel", ph="X", ts=5, dur=10, name="b"),
+          dict(cat="kernel", ph="X", ts=30, dur=5, name="a"),
+          dict(cat="cuda_runtime", ph="X", ts=15, dur=15, name="launch")]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    ivs = P.kernel_intervals(str(path))
+    assert [n for _, _, n in ivs] == ["a", "b", "a"]
+    assert P.busy_us(ivs) == 20.0

@@ -3,20 +3,36 @@ keyframe test (isdf_tpu/engine/step.py in eager torch).
 
 Each step selects the keyframe window (Gumbel top-k over log replay
 priorities, reference trainer.py:652-674), samples pixels and depths,
-gathers the pixels from the arena, runs the fused train op
-(models/cuda_mlp.py: the hand-written CUDA kernel on the card, its plain
-version on the CPU), applies AdamW on the packed parameter planes and
-writes the per-frame losses back for replay priority.
+gathers the pixels from the arena, computes the loss and its parameter
+gradient, applies AdamW on the packed parameter planes and writes the
+per-frame losses back for replay priority.
+
+The loss and gradient take one of two routes, chosen as isdf_tpu chooses
+(its step.py:142-147):
+
+* the fused train op (models/cuda_mlp.py: the hand-written CUDA kernel K1
+  on the card, its plain version on the CPU) with ``grad_mode: "pallas"``
+  and the spatial-gradient losses on. ``tpu.pe_in_kernel`` builds the PE
+  in the kernel (else the PE is streamed in, K1-stream) and
+  ``tpu.pc_in_kernel`` the batch-distance bounds too;
+* autograd over ``ray_batch_loss`` otherwise: ``grad_mode:
+  "reverse_fused"`` (the hand-derived op of models/fused_vjp.py on plain
+  ops), ``"auto"`` (nested autograd through the MLP), the pallas mode
+  where the fused op is not built (the reverse-fused op of
+  models/cuda_reverse_fused.py, kernels K2/K3 on the card), or a plain
+  forward when the eikonal and gradient weights are both 0.
+
+``tpu.use_pallas`` sends the pc bounds computed outside the fused op to the
+nearest-surface kernel K4 (ops/cuda_bounds.py; its plain version on the
+CPU); it has no effect where the fused op computes the bounds. The TPU-only
+knobs tpu.pallas_interpret, tpu.remat, tpu.compute_dtype, the
+ISDF_PALLAS_TM / ISDF_PALLAS_FAST32 environment variables and the
+scoped-VMEM compiler option have no effect here.
 
 A bundle is a plain loop of steps. Step t of the run draws from its own
 generator seeded from (seed, global step), so a trajectory does not depend
 on how steps are cut into bundles. Parameters, optimiser state and the
 arena's priority rows are updated in place.
-
-``grad_mode: "pallas"`` selects the fused train op. The TPU-only knobs are
-parsed and have no effect here: tpu.use_pallas, tpu.pallas_interpret,
-tpu.remat, tpu.compute_dtype, the ISDF_PALLAS_TM / ISDF_PALLAS_FAST32
-environment variables and the scoped-VMEM compiler option.
 """
 
 from __future__ import annotations
@@ -27,8 +43,10 @@ import torch
 
 from isdf_tpu_torch.engine.buffer import FrameBuffer
 from isdf_tpu_torch.models import sdf_mlp as M
-from isdf_tpu_torch.models.cuda_mlp import make_train_op
+from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op
+from isdf_tpu_torch.models.cuda_reverse_fused import make_cuda_reverse_fused
 from isdf_tpu_torch.models.fused_adamw import make_fused_adamw
+from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
 from isdf_tpu_torch.ops import bounds as B
 from isdf_tpu_torch.ops import losses as L
 from isdf_tpu_torch.ops import render as R
@@ -87,30 +105,51 @@ class StepFunctions:
         self.cfg, self.model, self.H, self.W = cfg, model, H, W
         self.device = torch.device(device)
         self.dirs = dirs_C_img.to(self.device)
-        do_sdf_grad = cfg.eik_weight != 0 or cfg.grad_weight != 0
-        if cfg.grad_mode != "pallas" or not do_sdf_grad:
+        if cfg.gauss_embed:
             raise NotImplementedError(
-                "only the fused train op is ported (grad_mode 'pallas' with "
-                "eikonal or gradient losses); grad_mode "
-                f"{cfg.grad_mode!r} is not")
-        if not cfg.pe_in_kernel:
-            raise NotImplementedError(
-                "the streamed-PE train op (pe_in_kernel=False) is not "
-                "ported yet")
-        if cfg.bounds_method not in ("ray", "pc"):
-            raise NotImplementedError(
-                f"bounds_method {cfg.bounds_method!r} is not ported yet")
+                "the Gaussian embedding (gauss_embed) is not ported to "
+                "isdf_tpu_torch yet")
         if cfg.data_parallel > 1:
-            raise NotImplementedError("data parallelism is not ported yet")
-        self.pc_in_kernel = cfg.pc_in_kernel and cfg.bounds_method == "pc"
-        self.train_op = make_train_op(
-            model, loss_type=cfg.loss_type,
-            trunc_distance=cfg.trunc_distance,
-            trunc_weight=cfg.trunc_weight,
-            eik_apply_dist=cfg.eik_apply_dist, eik_weight=cfg.eik_weight,
-            grad_weight=cfg.grad_weight, orien_loss=cfg.orien_loss,
-            pc_bounds=self.pc_in_kernel)
-        self.uses_kernel = self.device.type == "cuda"
+            raise NotImplementedError(
+                "data parallelism (tpu.data_parallel > 1) is not ported to "
+                "isdf_tpu_torch yet")
+        if cfg.grad_mode not in ("pallas", "reverse_fused", "auto"):
+            raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+        cuda = self.device.type == "cuda"
+        self.do_sdf_grad = cfg.eik_weight != 0 or cfg.grad_weight != 0
+        # the fused train op where isdf_tpu builds its Pallas train op
+        # (a data-parallel mesh needs pe_in_kernel); its kernel needs hidden
+        # 256, its plain version runs at any width
+        fused = (cfg.grad_mode == "pallas" and self.do_sdf_grad
+                 and (cfg.data_parallel == 1 or cfg.pe_in_kernel)
+                 and (not cuda or model.hidden_size == HID))
+        self.pc_in_kernel = (fused and cfg.pc_in_kernel and cfg.pe_in_kernel
+                             and cfg.bounds_method == "pc")
+        self.train_op = self.rf_op = None
+        sources = []
+        if fused:
+            self.train_op = make_train_op(
+                model, loss_type=cfg.loss_type,
+                trunc_distance=cfg.trunc_distance,
+                trunc_weight=cfg.trunc_weight,
+                eik_apply_dist=cfg.eik_apply_dist, eik_weight=cfg.eik_weight,
+                grad_weight=cfg.grad_weight, orien_loss=cfg.orien_loss,
+                pc_bounds=self.pc_in_kernel, pe_in_kernel=cfg.pe_in_kernel)
+            sources.append("train_mlp")
+        elif cfg.grad_mode != "auto" and self.do_sdf_grad:
+            # isdf_tpu step.py:207-216: the Pallas op on the accelerator
+            if (cfg.grad_mode == "pallas" and cuda
+                    and model.hidden_size == HID):
+                self.rf_op = make_cuda_reverse_fused(model)
+                sources.append("reverse_fused")
+            else:
+                self.rf_op = make_reverse_fused_mlp(model)
+        if (cfg.use_pallas and cfg.bounds_method == "pc"
+                and not self.pc_in_kernel):
+            sources.append("bounds_pc")
+        # the kernel libraries this step launches (built by the Trainer)
+        self.kernel_sources = sources if cuda else []
+        self.uses_kernel = bool(self.kernel_sources)
         self.adamw = make_fused_adamw(cfg.lr, cfg.weight_decay,
                                       b1=0.9, b2=0.999, eps=1e-8)
 
@@ -129,8 +168,13 @@ class StepFunctions:
 
     def loss_and_grad(self, params, transform, pc, z_vals, dirs_C, dirs_W,
                       depth, normals, valid, noise, surf=None, sv=None):
-        """The fused train op on one sampled batch -> (scalars, ploss
-        [R, S], (dW, db))."""
+        """Loss and parameter gradient of one sampled batch -> (scalars,
+        ploss [R, S], (dW, db)): the fused train op, or autograd over
+        ray_batch_loss where it is not built."""
+        if self.train_op is None:
+            return self.autograd_loss_and_grad(
+                params, transform, pc, z_vals, dirs_C, dirs_W, depth,
+                normals, valid, noise, surf=surf, sv=sv)
         cfg = self.cfg
         R_, S_, _ = pc.shape
         N = R_ * S_
@@ -153,7 +197,8 @@ class StepFunctions:
             bnd = B.compute_bounds(
                 cfg.bounds_method, dirs_C, depth, dirs_W, z_vals, pc,
                 cfg.trunc_distance, normals, valid,
-                do_grad=cfg.grad_weight != 0, surf=surf, surf_valid=sv)
+                do_grad=cfg.grad_weight != 0, surf=surf, surf_valid=sv,
+                use_kernel=cfg.use_pallas)
             if cfg.grad_weight != 0:
                 gv = bnd.grad
                 if bnd.grad_valid is not None:
@@ -162,15 +207,79 @@ class StepFunctions:
                 gt = torch.cat([normals[:, None, :], gv], dim=1).reshape(N, 3)
             else:
                 gt = torch.zeros((N, 3), device=pc.device)
-            sums, ploss, grads = self.train_op(
-                params, transform, flat, bnd.bounds.reshape(-1).contiguous(),
-                vflat, noise, gt.contiguous(), invC)
+            rest = (bnd.bounds.reshape(-1).contiguous(), vflat, noise,
+                    gt.contiguous(), invC)
+            if cfg.pe_in_kernel:
+                sums, ploss, grads = self.train_op(params, transform, flat,
+                                                   *rest)
+            else:
+                pe, _, dxs, dproj2 = M._pe_factored(flat, self.model,
+                                                    transform)
+                sums, ploss, grads = self.train_op(params, pe, dxs, dproj2,
+                                                   *rest)
         scalars = {"sdf_loss": sums[1] * invC, "total_loss": sums[0] * invC}
         if cfg.grad_weight != 0:
             scalars["grad_loss"] = sums[2] * invC
         if cfg.eik_weight != 0:
             scalars["eikonal_loss"] = sums[3] * invC
         return scalars, ploss.reshape(R_, S_), grads
+
+    def value_and_spatial_grad(self, params, pc, transform):
+        """(sdf [R, S], d sdf / dx [R, S, 3]) differentiable in params
+        (isdf_tpu step.py:195-226)."""
+        model = self.model
+        if self.rf_op is not None:
+            R_, S_, _ = pc.shape
+            pe, cos_b, dxs, dproj2 = M._pe_factored(
+                pc.reshape(R_ * S_, 3), model, transform)
+            raw, graw = self.rf_op(params, pe, cos_b, dxs, dproj2)
+            return (raw.reshape(R_, S_) * model.scale_output,
+                    graw.reshape(R_, S_, 3) * model.scale_output)
+        if not self.do_sdf_grad:
+            sdf = M.apply(params, pc, model, transform=transform)
+            return sdf, torch.zeros_like(pc)
+        x = pc.detach().requires_grad_(True)
+        sdf = M.apply(params, x, model, transform=transform)
+        (g,) = torch.autograd.grad(sdf.sum(), x, create_graph=True)
+        return sdf, g
+
+    def ray_batch_loss(self, params, transform, pc, z_vals, dirs_C, dirs_W,
+                       depth, normals, valid, noise, surf=None, sv=None):
+        """The loss of one batch as isdf_tpu's _ray_batch_loss
+        (step.py:187-262), differentiable in params -> L.TotalLoss."""
+        cfg = self.cfg
+        sdf, sdf_grad = self.value_and_spatial_grad(params, pc, transform)
+        sdf = sdf + noise.reshape(sdf.shape) * self.model.scale_output
+        bnd = B.compute_bounds(
+            cfg.bounds_method, dirs_C, depth, dirs_W, z_vals, pc,
+            cfg.trunc_distance, normals, valid,
+            do_grad=cfg.grad_weight != 0, surf=surf, surf_valid=sv,
+            use_kernel=cfg.use_pallas)
+        sdf_mat, free_space = L.sdf_loss(sdf, bnd.bounds, cfg.trunc_distance,
+                                         cfg.loss_type)
+        eik_mat = grad_mat = None
+        if cfg.eik_weight != 0:
+            eik_mat = (sdf_grad.norm(dim=-1) - 1.0).abs()
+        if cfg.grad_weight != 0:
+            grad_mat = L.grad_cosine_loss(sdf_grad, bnd.grad, bnd.grad_valid,
+                                          normals, cfg.orien_loss)
+        return L.tot_loss(sdf_mat, grad_mat, eik_mat, free_space, bnd.bounds,
+                          valid, cfg.eik_apply_dist, cfg.trunc_weight,
+                          cfg.grad_weight, cfg.eik_weight)
+
+    def autograd_loss_and_grad(self, params, transform, pc, z_vals, dirs_C,
+                               dirs_W, depth, normals, valid, noise,
+                               surf=None, sv=None):
+        """ray_batch_loss and its gradient in the packed planes (isdf_tpu
+        step.py:428-436) -> (scalars, ploss [R, S], (dW, db))."""
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        with torch.enable_grad():
+            out = self.ray_batch_loss(p, transform, pc, z_vals, dirs_C,
+                                      dirs_W, depth, normals, valid, noise,
+                                      surf=surf, sv=sv)
+            grads = torch.autograd.grad(out.total, [p["Wp"], p["bp"]])
+        scalars = {k: v.detach() for k, v in out.scalars.items()}
+        return scalars, out.mat.detach(), grads
 
     def update(self, params, opt_state, buf: FrameBuffer, grads, ploss,
                idxs, slot_valid, ib, ih, iw, valid, lr_scale):

@@ -33,6 +33,7 @@ from isdf_tpu_torch.engine.step import StepFunctions, step_seed
 from isdf_tpu_torch.models import fused_adamw
 from isdf_tpu_torch.models import sdf_mlp as M
 from isdf_tpu_torch.ops import geometry as G
+from isdf_tpu_torch.utils import nvcc
 from isdf_tpu_torch.utils.config import Config, load_config
 from isdf_tpu_torch.utils.device import resolve_device
 from isdf_tpu_torch.utils.profiling import StepTimer
@@ -100,10 +101,8 @@ class Trainer:
         self.frozen_params = M.copy_params(self.params)
         self.fns = StepFunctions(cfg, self.model, self.H, self.W,
                                  self.dirs_C, self.device)
-        if self.fns.uses_kernel:
-            # build the kernel library now, outside the simulated clock
-            from isdf_tpu_torch.models.cuda_mlp import load_library
-            load_library()
+        # build the step's kernel libraries now, outside the simulated clock
+        nvcc.load_all(self.fns.kernel_sources)
         self.opt_state = fused_adamw.init_state(self.params)
         self.buffer = BUF.make_buffer(cfg.kf_buffer_size, self.H, self.W,
                                       with_normals=cfg.do_normal,

@@ -1,10 +1,12 @@
 """The fused train op: loss AND parameter gradients of one ray batch.
 
 Port of isdf_tpu/models/pallas_mlp.py::make_pallas_train_op (the TPU
-kernel ``_make_kernel_train``, variants ``op_pc_bounds`` and
-``op_pe_in_kernel``). One call computes, for N sample points:
+kernel ``_make_kernel_train``, variants ``op_pc_bounds``,
+``op_pe_in_kernel`` and ``op``). One call computes, for N sample points:
 
-  * the PE from the world points (one f32 affine map + sin);
+  * the PE: built from the world points (one f32 affine map + sin), or
+    streamed in as a [N, E] plane (sdf_mlp._pe_factored, the ``op``
+    variant, pe_in_kernel=False);
   * (pc variant) the batch-distance bound: signed distance to the nearest
     valid surface point, first-index argmin, behind-surface sign, and the
     gradient target with the per-point normal fallback at degeneracies;
@@ -33,73 +35,29 @@ tensors and launches the kernel for CUDA tensors; it never falls back.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-
 import numpy as np
 import torch
 
+from isdf_tpu_torch.models import fused_vjp as FV
 from isdf_tpu_torch.models.sdf_mlp import SDFModel, _pe_consts
+from isdf_tpu_torch.utils import nvcc
 
 HID = 256
-TM = 64           # rows per tile of the kernel's first phase
+TM = 64           # rows per tile of the kernels' first phase
 N_SPLITS = 8      # split-K partials of the dW products
 HALF_PI = float(np.float32(np.pi / 2))
 
 # kernel launches per variant; only the wrapper below adds to them
-LAUNCHES = {"K1-pc": 0, "K1-ray": 0}
+LAUNCHES = {"K1-pc": 0, "K1-ray": 0, "K1-stream": 0}
+MODES = {"K1-pc": 0, "K1-ray": 1, "K1-stream": 2}
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "train_mlp.cu")
-_LIB = None
-_LIB_LOCK = threading.Lock()
-BUILD_INFO = {}
-
-
-def build_dir() -> str:
-    return os.environ.get(
-        "ISDF_TORCH_BUILD_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-            __file__))), "_build"))
-
-
-def load_library():
-    """Build (first use; the library is keyed by the source's hash) and
-    load the kernel library. nvcc's -Xptxas -v report lands in
-    BUILD_INFO["nvcc_log"]."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        t0 = time.perf_counter()
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        out = os.path.join(build_dir(), f"libisdf_train_mlp_{digest}.so")
-        if not os.path.exists(out):
-            os.makedirs(build_dir(), exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            r = subprocess.run(
-                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, _SRC],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            BUILD_INFO["nvcc_log"] = r.stdout
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SRC}:\n{r.stdout}")
-            os.replace(tmp, out)
-        BUILD_INFO["build_s"] = time.perf_counter() - t0
-        lib = ctypes.CDLL(out)
-        lib.isdf_train_mlp.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_void_p, ctypes.c_void_p]
-        lib.isdf_train_mlp.restype = ctypes.c_int
-        _LIB = lib
-        return lib
+# the pointer fields of the kernels' argument block (csrc/mlp_tile.cuh,
+# struct Args), in declaration order
+ARG_PTRS = ("pts", "valid", "noise", "col_a", "vec3", "is_surf", "sp",
+            "surf", "Mc", "Tc", "b", "w_out", "inv_count", "W", "ploss",
+            "sums", "dW", "db", "pe32", "sig", "u", "h5", "t5", "peb", "m0b",
+            "hb", "tb", "dzb", "dub", "part_scal", "part_db", "part_dwout",
+            "part_dw", "pe_in", "raw_out", "graw_out", "draw_in", "dg_in")
 
 
 def _round_up(n, m):
@@ -137,47 +95,32 @@ def score_plane(surf, surf_valid):
 # the plain version
 # ---------------------------------------------------------------------------
 
-def _rnd(x, mm_dtype):
-    return x if mm_dtype == torch.float32 else x.to(mm_dtype).float()
-
-
-def _sig_sp(z):
-    x = 100.0 * z
-    e = torch.exp(-x.abs())
-    inv = 1.0 / (1.0 + e)
-    sig = torch.where(x >= 0, inv, e * inv)
-    h = (torch.clamp(x, min=0.0) + torch.log1p(e)) * 0.01
-    return sig, h
-
-
 def train_op_plain(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
                    inv_count, *, bounds=None, gt=None, surf=None,
                    surf_valid=None, zd=None, normals_pt=None, is_surf=None,
-                   mm_dtype=torch.bfloat16):
+                   pe=None, mm_dtype=torch.bfloat16):
     """Eager-torch train op. pc variant when ``surf`` is given (then zd,
-    normals_pt, is_surf, surf_valid), else ray variant (bounds, gt).
+    normals_pt, is_surf, surf_valid), else the ray variant (bounds, gt);
+    ``pe`` [N, E] streams the PE in (then pts and M are unused).
     Returns (sums [5], ploss [N], (dW like Wp, db like bp))."""
-    E, H, K = model.embedding_size, model.hidden_size, model.pack_rows
-    L, cat = model.n_layers, model.cat_idx
-    nh = L - 1
+    E = model.embedding_size
     F = (E - 3) // 2
-    Wp, bp = params["Wp"], params["bp"]
-    dev = pts.device
     so = lk["so"]
-    x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
-
-    # ---- PE (the kernel's rounding order) ----
-    Me = M[:, :E]
-    pre = ((x * Me[0] + y * Me[1]) + z * Me[2]) + Me[3]
+    dev = valid.device
     lane = torch.arange(E, device=dev)
-    cos_lane = lane >= 3 + F
-    s = torch.sin(pre + torch.where(cos_lane, HALF_PI, 0.0))
-    pe = torch.where(lane < 3, pre, s)
+    if pe is None:
+        # ---- PE (the kernel's rounding order) ----
+        x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
+        Me = M[:, :E]
+        pre = ((x * Me[0] + y * Me[1]) + z * Me[2]) + Me[3]
+        s = torch.sin(pre + torch.where(lane >= 3 + F, HALF_PI, 0.0))
+        pe = torch.where(lane < 3, pre, s)
     cb = torch.cat([torch.ones_like(pe[:, :3]), pe[:, 3 + F:],
                     -pe[:, 3:3 + F]], dim=1)
 
     # ---- bounds and gradient targets ----
     if surf is not None:
+        x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
         sp = score_plane(surf, surf_valid)
         scores = ((x * sp[0] + y * sp[1]) + z * sp[2]) + sp[3]
         closest = scores.argmin(dim=1)
@@ -190,34 +133,10 @@ def train_op_plain(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     else:
         b_col = bounds[:, None]
 
-    def mm(a, w):
-        return _rnd(a, mm_dtype) @ _rnd(w, mm_dtype)
-
-    def w_in(l):          # main-input rows of layer l
-        return Wp[l, :E] if l == 0 else Wp[l, :H]
-
-    # ---- forward ----
-    h = pe
-    sigs, hs = [], []
-    for l in range(nh):
-        zz = mm(h, w_in(l))
-        if l == cat:
-            zz = zz + mm(pe, Wp[l, K:K + E])
-        sig, h = _sig_sp(zz + bp[l])
-        sigs.append(sig)
-        hs.append(h)
-    w_out = Wp[L - 1, :H, 0]
-    raw = (h * w_out).sum(-1, keepdim=True) + bp[L - 1, 0]
-
-    # ---- v-chain -> spatial gradient ----
-    v = w_out.expand_as(h)
-    vpe = torch.zeros_like(pe)
-    for l in range(nh - 1, -1, -1):
-        vs = v * sigs[l]
-        if l == cat:
-            vpe = vpe + mm(vs, Wp[l, K:K + E].T)
-        v = mm(vs, w_in(l).T)
-    vpe = vpe + v
+    # ---- forward, v-chain -> spatial gradient ----
+    raw, sigs, hs = FV.forward_values(params, model, pe, mm_dtype)
+    raw = raw[:, None]
+    vpe = FV.v_chain(params, model, sigs, mm_dtype)
     g = (cb * vpe) @ Tc[:, :E].T                                # [N, 3]
 
     # ---- per-point loss ----
@@ -275,43 +194,11 @@ def train_op_plain(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     draw = w_pt * dsdf_mat * so                                 # [N, 1]
     dg = dg * so * w_pt
 
-    # ---- combined tangent + tangent chain ----
+    # ---- combined tangent, tangent chain, parameter VJP ----
     dgT = dg @ Tc[:, :E]
     m0 = torch.where(lane < 3, dgT, cb * dgT)
-    t = m0
-    us, ts = [], []
-    for l in range(nh):
-        u = mm(t, w_in(l))
-        if l == cat:
-            u = u + mm(m0, Wp[l, K:K + E])
-        t = u * sigs[l]
-        us.append(u)
-        ts.append(t)
-
-    dW = torch.zeros_like(Wp)
-    db = torch.zeros_like(bp)
-    dW[L - 1, :H, 0] = (h * draw).sum(0) + t.sum(0)
-    db[L - 1, 0] = draw.sum()
-
-    def mm_c(a, b_):       # a^T b over the rows
-        return _rnd(a, mm_dtype).T @ _rnd(b_, mm_dtype)
-
-    dh = draw * w_out
-    dt = w_out.expand_as(dh)
-    for l in range(nh - 1, -1, -1):
-        sig, u = sigs[l], us[l]
-        sigp = 100.0 * sig * (1.0 - sig)
-        du = dt * sig
-        dz = dh * sig + (dt * u) * sigp
-        a_in = pe if l == 0 else hs[l - 1]
-        ta_in = m0 if l == 0 else ts[l - 1]
-        dW[l, :a_in.shape[1]] = mm_c(a_in, dz) + mm_c(ta_in, du)
-        if l == cat:
-            dW[l, K:K + E] = mm_c(pe, dz) + mm_c(m0, du)
-        db[l] = dz.sum(0)
-        if l > 0:
-            dh = mm(dz, w_in(l).T)
-            dt = mm(du, w_in(l).T)
+    dW, db = FV.param_vjp(params, model, pe, m0, sigs, hs, draw[:, 0],
+                          mm_dtype)
     return sums, total[:, 0], (dW, db)
 
 
@@ -331,109 +218,133 @@ def _check(name, t, shape, dtype=torch.float32):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
-                  inv_count, *, bounds=None, gt=None, surf=None,
-                  surf_valid=None, zd=None, normals_pt=None, is_surf=None):
-    """Launch the kernel (three phases on the current stream). Same
-    arguments and results as train_op_plain with mm_dtype=bf16."""
+def check_kernel_model(model: SDFModel):
     if model.hidden_size != HID or model.embedding_size > HID:
-        raise ValueError("the train kernel needs hidden_size == 256 and "
+        raise ValueError("the MLP kernels need hidden_size == 256 and "
                          "an embedding of at most 256 lanes")
     if model.mm_precision != "default":
         raise NotImplementedError(
-            "the train kernel runs bf16 hidden products only "
+            "the MLP kernels run bf16 hidden products only "
             "(mm_precision='default')")
-    pc = surf is not None
-    N = pts.shape[0]
+
+
+def weight_args(params, model: SDFModel):
+    """The weight pointers of the argument block: W (bf16 planes), b and
+    w_out, checked."""
     L = model.n_layers
-    nh = L - 1
-    dev = pts.device
     Wp, bp = params["Wp"], params["bp"]
     _check("Wp", Wp, (L, 2 * HID, HID))
     _check("bp", bp, (L, HID))
-    _check("pts", pts, (N, 3))
-    _check("valid", valid, (N,))
-    _check("noise", noise, (N,))
-    _check("inv_count", inv_count, ())
-    _check("M", M, (128, HID))
-    _check("Tc", Tc, (3, HID))
-    if pc:
-        R = surf.shape[0]
-        _check("surf", surf, (R, 3))
-        _check("surf_valid", surf_valid, (R,))
-        _check("zd", zd, (N,))
-        _check("normals_pt", normals_pt, (N, 3))
-        _check("is_surf", is_surf, (N,))
-        col_a, vec3 = zd, normals_pt
-        sp = score_plane(surf, surf_valid)
-    else:
-        R = 0
-        _check("bounds", bounds, (N,))
-        _check("gt", gt, (N, 3))
-        col_a, vec3, sp = bounds, gt, None
-        surf = is_surf = None
+    return dict(W=Wp.to(torch.bfloat16).contiguous(), b=bp,
+                w_out=Wp[L - 1, :HID, 0].contiguous())
 
-    lib = load_library()
-    NP = _round_up(N, TM)
-    n_tiles = NP // TM
-    rps = _round_up(-(-NP // N_SPLITS), 16)
-    W16 = Wp.to(torch.bfloat16).contiguous()
-    w_out = Wp[L - 1, :HID, 0].contiguous()
-    Mc = M[:4].contiguous()
 
+def vjp_scratch(model: SDFModel, NP: int, dev):
+    """Scratch of the parameter-VJP phases (sig/u stash, bf16 dW operands,
+    per-tile and split-K partials)."""
+    L = model.n_layers
+    nh = L - 1
     f32, b16 = torch.float32, torch.bfloat16
 
     def e(*shape, dtype=f32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    ploss, sums = e(N), e(5)
-    dW, db = e(L, 2 * HID, HID), e(L, HID)
-    scratch = dict(
+    return dict(
         pe32=e(NP, HID), sig=e(nh, NP, HID), u=e(nh, NP, HID),
         h5=e(NP, HID), t5=e(NP, HID),
         peb=e(NP, HID, dtype=b16), m0b=e(NP, HID, dtype=b16),
         hb=e(max(nh - 1, 1), NP, HID, dtype=b16),
         tb=e(max(nh - 1, 1), NP, HID, dtype=b16),
         dzb=e(nh, NP, HID, dtype=b16), dub=e(nh, NP, HID, dtype=b16),
-        part_scal=e(n_tiles, 8), part_db=e(n_tiles, L * HID),
-        part_dwout=e(n_tiles, HID), part_dw=e(N_SPLITS, nh + 1, HID, HID))
+        part_db=e(NP // TM, L * HID), part_dwout=e(NP // TM, HID),
+        part_dw=e(N_SPLITS, nh + 1, HID, HID),
+        dW=e(L, 2 * HID, HID), db=e(L, HID))
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
 
-    ptrs = [pts, valid, noise, col_a, vec3, is_surf, sp, surf, Mc, Tc, bp,
-            w_out, inv_count, W16, ploss, sums, dW, db,
-            *(scratch[k] for k in ("pe32", "sig", "u", "h5", "t5", "peb",
-                                   "m0b", "hb", "tb", "dzb", "dub",
-                                   "part_scal", "part_db", "part_dwout",
-                                   "part_dw"))]
-    p_arr = (ctypes.c_longlong * len(ptrs))(*[ptr(t) for t in ptrs])
-    k_arr = (ctypes.c_float * 7)(lk["so"], lk["trunc_d"], lk["tw"], lk["gw"],
-                                 lk["ew"], lk["ead"], lk["fsf"])
-    i_arr = (ctypes.c_int * 11)(N, NP, R, L, model.cat_idx,
-                                model.embedding_size,
-                                int(lk["loss_type"] == "L1"),
-                                int(lk["orien"]), N_SPLITS, rps, int(pc))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.isdf_train_mlp(p_arr, k_arr, i_arr, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"train_mlp kernel launch failed: CUDA error {rc}")
-    LAUNCHES["K1-pc" if pc else "K1-ray"] += 1
-    return sums, ploss, (dW, db)
+def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
+           R: int = 0, extra_ints=()):
+    """Launch an entry point of the MLP kernels with the argument block
+    made of ``ptrs`` (ARG_PTRS names, W among them; missing ones are
+    null)."""
+    unknown = set(ptrs) - set(ARG_PTRS)
+    assert not unknown, unknown
+    NP = _round_up(N, TM)
+    rps = _round_up(-(-NP // N_SPLITS), 16)
+    lk = lk or dict(so=0.0, trunc_d=0.0, tw=0.0, gw=0.0, ew=0.0, ead=0.0,
+                    fsf=0.0, loss_type="L1", orien=False)
+    knobs = [lk["so"], lk["trunc_d"], lk["tw"], lk["gw"], lk["ew"],
+             lk["ead"], lk["fsf"]]
+    ints = [N, NP, R, model.n_layers, model.cat_idx, model.embedding_size,
+            int(lk["loss_type"] == "L1"), int(lk["orien"]), N_SPLITS, rps,
+            *extra_ints]
+    nvcc.call(lib, fn_name, [ptrs.get(k) for k in ARG_PTRS], knobs, ints,
+              ptrs["W"].device)
+
+
+def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
+                  inv_count, *, bounds=None, gt=None, surf=None,
+                  surf_valid=None, zd=None, normals_pt=None, is_surf=None,
+                  pe=None):
+    """Launch the kernel (three phases on the current stream). Same
+    arguments and results as train_op_plain with mm_dtype=bf16."""
+    check_kernel_model(model)
+    name = ("K1-pc" if surf is not None else
+            "K1-stream" if pe is not None else "K1-ray")
+    N = (pe if pe is not None else pts).shape[0]
+    dev = (pe if pe is not None else pts).device
+    ptrs = weight_args(params, model)
+    _check("valid", valid, (N,))
+    _check("noise", noise, (N,))
+    _check("inv_count", inv_count, ())
+    _check("Tc", Tc, (3, HID))
+    ptrs.update(valid=valid, noise=noise, inv_count=inv_count, Tc=Tc)
+    R = 0
+    if name == "K1-stream":
+        _check("pe", pe, (N, model.embedding_size))
+        ptrs["pe_in"] = pe
+    else:
+        _check("pts", pts, (N, 3))
+        _check("M", M, (128, HID))
+        ptrs.update(pts=pts, Mc=M[:4].contiguous())
+    if name == "K1-pc":
+        R = surf.shape[0]
+        _check("surf", surf, (R, 3))
+        _check("surf_valid", surf_valid, (R,))
+        _check("zd", zd, (N,))
+        _check("normals_pt", normals_pt, (N, 3))
+        _check("is_surf", is_surf, (N,))
+        ptrs.update(col_a=zd, vec3=normals_pt, is_surf=is_surf,
+                    sp=score_plane(surf, surf_valid), surf=surf)
+    else:
+        _check("bounds", bounds, (N,))
+        _check("gt", gt, (N, 3))
+        ptrs.update(col_a=bounds, vec3=gt)
+
+    NP = _round_up(N, TM)
+    ptrs.update(vjp_scratch(model, NP, dev))
+    ptrs.update(ploss=torch.empty(N, device=dev),
+                sums=torch.empty(5, device=dev),
+                part_scal=torch.empty(NP // TM, 8, device=dev))
+    launch(nvcc.load("train_mlp"), "isdf_train_mlp", model, N, ptrs, lk=lk,
+           R=R, extra_ints=(MODES[name],))
+    LAUNCHES[name] += 1
+    return ptrs["sums"], ptrs["ploss"], (ptrs["dW"], ptrs["db"])
 
 
 def make_train_op(model: SDFModel, *, loss_type: str, trunc_distance: float,
                   trunc_weight: float, eik_apply_dist: float,
                   eik_weight: float, grad_weight: float, orien_loss: bool,
-                  free_space_factor: float = 5.0, pc_bounds: bool = False):
-    """Fused train op (isdf_tpu make_pallas_train_op with
-    pe_in_kernel=True and packed_io=True).
+                  free_space_factor: float = 5.0, pc_bounds: bool = False,
+                  pe_in_kernel: bool = True):
+    """Fused train op (isdf_tpu make_pallas_train_op with packed_io=True).
 
     pc_bounds=True: op(params, transform, pts [N,3], surf [R,3],
         surf_valid [R] f32, zd [N], normals_pt [N,3], is_surf [N] f32,
         valid [N] f32, noise [N], inv_count [])
-    else:           op(params, transform, pts, bounds [N], valid, noise,
+    pe_in_kernel=True: op(params, transform, pts, bounds [N], valid, noise,
         gt [N,3], inv_count)
+    pe_in_kernel=False: op(params, pe [N,E], dxs [3,3], dproj2 [3,2F],
+        bounds, valid, noise, gt, inv_count)  (sdf_mlp._pe_factored)
     -> (sums [5], ploss [N], (dW, db)).
 
     CPU tensors take train_op_plain (hidden products in bf16 when
@@ -442,35 +353,44 @@ def make_train_op(model: SDFModel, *, loss_type: str, trunc_distance: float,
     """
     assert eik_weight != 0.0 or grad_weight != 0.0, \
         "the train op needs the spatial-gradient losses"
+    assert pe_in_kernel or not pc_bounds, "pc_bounds needs pe_in_kernel"
     lk = _loss_knobs(model, loss_type, trunc_distance, trunc_weight,
                      eik_apply_dist, eik_weight, grad_weight, orien_loss,
                      free_space_factor)
-    mm_dtype = (torch.bfloat16 if model.mm_precision == "default"
-                else torch.float32)
+    mm_dtype = FV.mm_dtype_of(model)
 
-    def consts(transform, dev):
-        M, dxs, dproj2 = _pe_consts(model, transform, device=dev)
-        return M, tangent_rows(model, dxs, dproj2).contiguous()
-
-    def run(params, transform, pts, kw, valid, noise, inv_count):
-        M, Tc = consts(transform, pts.device)
-        if pts.device.type == "cuda":
+    def run(params, M, Tc, pts, kw, valid, noise, inv_count):
+        dev = (pts if pts is not None else kw["pe"]).device
+        if dev.type == "cuda":
             return train_op_cuda(params, model, lk, M, Tc, pts, valid, noise,
                                  inv_count, **kw)
         return train_op_plain(params, model, lk, M, Tc, pts, valid, noise,
                               inv_count, mm_dtype=mm_dtype, **kw)
 
+    def consts(transform, dev):
+        M, dxs, dproj2 = _pe_consts(model, transform, device=dev)
+        return M, tangent_rows(model, dxs, dproj2).contiguous()
+
     if pc_bounds:
         def op_pc_bounds(params, transform, pts, surf, surf_valid, zd,
                          normals_pt, is_surf, valid, noise, inv_count):
-            return run(params, transform, pts,
+            M, Tc = consts(transform, pts.device)
+            return run(params, M, Tc, pts,
                        dict(surf=surf, surf_valid=surf_valid, zd=zd,
                             normals_pt=normals_pt, is_surf=is_surf),
                        valid, noise, inv_count)
         return op_pc_bounds
 
-    def op_pe_in_kernel(params, transform, pts, bounds, valid, noise, gt,
-                        inv_count):
-        return run(params, transform, pts, dict(bounds=bounds, gt=gt),
+    if pe_in_kernel:
+        def op_pe_in_kernel(params, transform, pts, bounds, valid, noise, gt,
+                            inv_count):
+            M, Tc = consts(transform, pts.device)
+            return run(params, M, Tc, pts, dict(bounds=bounds, gt=gt),
+                       valid, noise, inv_count)
+        return op_pe_in_kernel
+
+    def op(params, pe, dxs, dproj2, bounds, valid, noise, gt, inv_count):
+        Tc = tangent_rows(model, dxs, dproj2).contiguous()
+        return run(params, None, Tc, None, dict(bounds=bounds, gt=gt, pe=pe),
                    valid, noise, inv_count)
-    return op_pe_in_kernel
+    return op

@@ -198,6 +198,39 @@ def sdf_and_grad(params, x, model: SDFModel, transform=None):
     return sdf.detach(), g
 
 
+def _pe_factored(x, model: SDFModel, transform):
+    """The PE of points x [N, 3] with its Jacobian in factored form:
+    (pe [N,E], cos_b [N,2F], dxs [3,3], dproj2 [3,2F]), F = 21 * n_freqs
+    (isdf_tpu/models/sdf_mlp.py::_pe_factored). The tangent of pe along
+    world axis k is [dxs[k] | cos_b * dproj2[k]], and cos_b =
+    [cos(xb), -sin(xb)] is a column permutation of pe. IEEE float32; the
+    cos lanes are cos(xb) here, where the in-kernel PE takes
+    sin(xb + pi/2)."""
+    dev = x.device
+    nf = emb.n_freqs(model.min_deg, model.max_deg)
+    b = emb.bands(model.min_deg, model.max_deg).to(dev)
+    D = torch.from_numpy(emb.ICOSAHEDRON_DIRS.T.copy()).to(dev)  # [3,21]
+    s = torch.tensor(model.scale_input, dtype=torch.float32, device=dev)
+    if transform is not None:
+        T = torch.as_tensor(transform, dtype=torch.float32, device=dev)
+        R, t = T[:3, :3], T[:3, 3]
+        xs = (x @ R.T + t) * s
+        C = s * (R.T @ D)
+        dxs = s * R.T
+    else:
+        xs = x * s
+        C = s * D
+        dxs = s * torch.eye(3, dtype=torch.float32, device=dev)
+    proj = xs @ D                                                # [N, 21]
+    F = D.shape[1] * nf
+    xb = (proj[:, :, None] * b).reshape(-1, F)
+    sin_b, cos_half = torch.sin(xb), torch.cos(xb)
+    pe = torch.cat([xs, sin_b, cos_half], dim=-1)
+    cos_b = torch.cat([cos_half, -sin_b], dim=-1)
+    dproj = (C[:, :, None] * b).reshape(3, F)
+    return pe, cos_b, dxs, torch.cat([dproj, dproj], dim=-1)
+
+
 def _pe_consts(model: SDFModel, transform, device="cpu"):
     """Point-independent pieces of the factored PE, for building the
     encoding inside the train kernel:

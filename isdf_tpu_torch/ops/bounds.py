@@ -1,12 +1,16 @@
 """Self-supervised SDF bound targets (isdf_tpu/ops/bounds.py in torch).
 
-  * ray — b = (depth - z) * ||dir_C|| along each ray;
-  * pc  — "batch distance": signed distance from each sample to the nearest
-          valid surface point of the whole ray batch.
+  * ray    — b = (depth - z) * ||dir_C|| along each ray;
+  * normal — the ray bound corrected by the cosine of the angle between the
+             ray and the surface normal inside the truncation region;
+  * pc     — "batch distance": signed distance from each sample to the
+             nearest valid surface point of the whole ray batch.
 
 The pc search is scores = -2 x.s + |s|^2 in IEEE float32 (TF32 is off in
 the port) with a first-index argmin, then the exact distance at the argmin.
-The normal-corrected bound is not ported yet.
+With ``use_kernel`` (the step's tpu.use_pallas) the search goes to the
+nearest-surface kernel of ops/cuda_bounds.py (K4) instead: the kernel on
+CUDA tensors, its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from isdf_tpu_torch.ops.cuda_bounds import closest_surface_ix
 
 
 class Bounds(NamedTuple):
@@ -41,8 +47,24 @@ def cos_sim(a, b, eps: float = 1e-6):
     return (a * b).sum(-1) / (na * nb)
 
 
+def bounds_normal(depth, z_vals, dirs_C, normals, normal_trunc_dist,
+                  dirs_W=None, do_grad: bool = True):
+    """Normal-corrected bound (reference loss.py:25-45)."""
+    ray_b = bounds_ray(depth, z_vals, dirs_C, dirs_W, do_grad=False).bounds
+    costheta = cos_sim(-dirs_C, normals).abs()
+    sub = normal_trunc_dist * (1.0 - costheta)
+    normal_b = ray_b - sub[:, None]
+    trunc = ray_b < normal_trunc_dist
+    normal_b = torch.where(trunc, ray_b * costheta[:, None], normal_b)
+    grad = None
+    if do_grad:
+        S = z_vals.shape[1]
+        grad = (-dirs_W[:, None, :]).expand(dirs_W.shape[0], S - 1, 3)
+    return Bounds(normal_b, grad, None)
+
+
 def bounds_pc(pc, z_vals, depth, valid, do_grad: bool = True, surf=None,
-              surf_valid=None):
+              surf_valid=None, use_kernel: bool = False):
     """Batch-distance bound (reference loss.py:56-89), masked and static.
     pc [R, S, 3] with index 0 the exact surface sample; invalid rays'
     surface points never win the argmin; negative behind the surface."""
@@ -50,9 +72,12 @@ def bounds_pc(pc, z_vals, depth, valid, do_grad: bool = True, surf=None,
     if surf is None:
         surf, surf_valid = pc[:, 0], valid
     flat = pc.reshape(R * S, 3)
-    scores = -2.0 * (flat @ surf.T) + (surf * surf).sum(-1)[None, :]
-    scores = torch.where(surf_valid[None, :], scores, torch.inf)
-    closest = scores.argmin(dim=-1)
+    if use_kernel:
+        closest = closest_surface_ix(flat, surf, surf_valid)
+    else:
+        scores = -2.0 * (flat @ surf.T) + (surf * surf).sum(-1)[None, :]
+        scores = torch.where(surf_valid[None, :], scores, torch.inf)
+        closest = scores.argmin(dim=-1)
     diff = flat - surf[closest]
     dists = diff.norm(dim=-1).reshape(R, S)
     behind = z_vals > depth[:, None]
@@ -69,11 +94,16 @@ def bounds_pc(pc, z_vals, depth, valid, do_grad: bool = True, surf=None,
 
 def compute_bounds(method: str, dirs_C, depth, dirs_W, z_vals, pc,
                    normal_trunc_dist, normals, valid, do_grad: bool = True,
-                   surf=None, surf_valid=None) -> Bounds:
-    """Dispatch matching reference loss.bounds (loss.py:92-119)."""
+                   surf=None, surf_valid=None,
+                   use_kernel: bool = False) -> Bounds:
+    """Dispatch matching reference loss.bounds (loss.py:92-119);
+    ``use_kernel`` sends the pc search to K4 (isdf_tpu's pallas_mode)."""
     if method == "ray":
         return bounds_ray(depth, z_vals, dirs_C, dirs_W, do_grad)
+    if method == "normal":
+        return bounds_normal(depth, z_vals, dirs_C, normals,
+                             normal_trunc_dist, dirs_W, do_grad)
     if method == "pc":
         return bounds_pc(pc, z_vals, depth, valid, do_grad, surf=surf,
-                         surf_valid=surf_valid)
-    raise NotImplementedError(f"bounds method {method!r} is not ported yet")
+                         surf_valid=surf_valid, use_kernel=use_kernel)
+    raise ValueError(f"unknown bounds method {method!r}")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Where the time of a training step goes on the card.
 
-    python -m isdf_tpu_torch.train.profile_step
+    python -m isdf_tpu_torch.train.profile_step [SECTION.KEY=VALUE ...]
 
-Runs the online trainer on train/configs/synthetic.json (Trainer +
-train_loop, simulated clock pinned at 1/300 s per step) for 300 steps, then
+Runs the online trainer on train/configs/synthetic.json with the given
+config overrides, e.g. tpu.pe_in_kernel=false tpu.use_pallas=true (Trainer
++ train_loop, simulated clock pinned at 1/300 s per step) for 300 steps, then
 times 200 more steps of the steady training bundle (Trainer.run_steps, 10
 steps per call) twice: once bare, once under torch.profiler tracing the
 card only. Prints the host-clock time per step of both (the difference is
@@ -48,14 +49,17 @@ def busy_us(intervals):
     return total
 
 
-def main():
+def main(argv=None):
+    import sys
+
     from torch.profiler import ProfilerActivity, profile
 
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.utils.config import load_config
 
-    tr = Trainer(load_config(CONFIG), seed=1)
+    overrides = list(sys.argv[1:] if argv is None else argv)
+    tr = Trainer(load_config(CONFIG, overrides=overrides or None), seed=1)
     tr._per_step_device_s = 1.0 / 300
     tr._bill_exact = True
     train_loop(tr, max_steps=WARMUP,
@@ -79,7 +83,7 @@ def main():
         prof.export_chrome_trace(path)
         ivs = kernel_intervals(path)
 
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {torch.cuda.get_device_name(0)}; overrides: {overrides}")
     print(f"steps timed: {STEPS} in bundles of {BUNDLE}")
     print(f"host wall per step, bare: {1e3 * wall_bare / STEPS:.4f} ms")
     print(f"host wall per step, traced: {1e3 * wall_traced / STEPS:.4f} ms")

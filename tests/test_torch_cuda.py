@@ -1,18 +1,21 @@
-"""The port's CUDA kernel on the card, and its wrapper's contract.
+"""The port's CUDA kernels on the card, and their wrappers' contract.
 
 This file imports neither jax nor isdf_tpu, so it also runs on a machine
 with a GPU and no JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-Tests marked ``cuda`` skip without a CUDA device: the kernel has no CPU
+Tests marked ``cuda`` skip without a CUDA device: the kernels have no CPU
 mode. Kernel vs plain version tolerances (both with bf16 hidden products)
 are about 10x the largest gap read on an H100 at this test's size, N =
-5,400 points (PERF.md, Findings PR 1): loss sums 1.5e-4 relative (read:
-1.5e-5), per-point loss 5e-3 of its largest magnitude (read: 8.4e-4), and
-each gradient block (a layer's weight rows, the skip layer's pe rows
-apart, and a layer's bias) 1.5e-3 of its own largest magnitude (read:
-1.4e-4). chip_smoke.py holds the full-size call (N = 27,000) tighter.
+5,400 points (PERF.md, section 6): loss sums 1.5e-4 relative
+(read: 1.5e-5), per-point loss 5e-3 of its largest magnitude (read:
+8.4e-4), each gradient block (a layer's weight rows, the skip layer's pe
+rows apart, and a layer's bias) 1.5e-3 of its own largest magnitude (read:
+1.4e-4 for K1, 1.0e-4 for K3), K2's raw sdf and each column of d raw/dx
+7e-2 of their largest magnitude (read: 6.4e-3; single points sit on bf16
+rounding boundaries, see PERF.md), K4's indices exactly. chip_smoke.py
+holds the full-size calls (N = 27,000).
 """
 
 import numpy as np
@@ -20,12 +23,16 @@ import pytest
 import torch
 
 from isdf_tpu_torch.models import cuda_mlp as K
+from isdf_tpu_torch.models import cuda_reverse_fused as CRF
 from isdf_tpu_torch.models import sdf_mlp as TM
+from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
+from isdf_tpu_torch.ops import cuda_bounds as CB
 
 KW = dict(loss_type="L1", trunc_distance=0.29365022, trunc_weight=5.3834402,
           eik_apply_dist=0.1, eik_weight=0.268, grad_weight=0.018,
           orien_loss=False)
 TOL_SUMS_REL, TOL_PLOSS, TOL_GRAD = 1.5e-4, 5e-3, 1.5e-3
+TOL_RAW = 7e-2
 
 
 def _inputs(device, R=200, S=27, seed=0):
@@ -149,6 +156,128 @@ def test_trainer_launches_the_kernel_once_per_step_on_card():
     assert K.LAUNCHES["K1-pc"] - n0 == res.steps == 40
 
 
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_stream_kernel_matches_plain_on_card():
+    _need_card()
+    model, params, T, x = _setup("cuda")
+    pe, _, dxs, dproj2 = TM._pe_factored(x["pts"], model, T)
+    op = K.make_train_op(model, **KW, pe_in_kernel=False)
+    n0 = K.LAUNCHES["K1-stream"]
+    ks, kp, (kdw, kdb) = op(params, pe, dxs, dproj2, x["bounds"], x["valid"],
+                            x["noise"], x["gt"], x["inv_count"])
+    assert K.LAUNCHES["K1-stream"] == n0 + 1
+    lk = K._loss_knobs(model, free_space_factor=5.0, **KW)
+    ps, pp, (pdw, pdb) = K.train_op_plain(
+        params, model, lk, None, K.tangent_rows(model, dxs, dproj2), None,
+        x["valid"], x["noise"], x["inv_count"], bounds=x["bounds"],
+        gt=x["gt"], pe=pe)
+    torch.cuda.synchronize()
+    sums_rel = ((ks - ps).abs() / ps.abs()).max().item()
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, kdw, kdb),
+                                       _blocks(model, pdw, pdb))]
+    print(f"K1-stream: sums {sums_rel:.3e} ploss {_rel(kp, pp):.3e} "
+          f"blocks {max(errs):.3e}")
+    assert sums_rel <= TOL_SUMS_REL
+    assert _rel(kp, pp) <= TOL_PLOSS
+    assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+def test_closest_surface_kernel_matches_plain_on_card():
+    _need_card()
+    _, _, _, x = _setup("cuda")
+    sv = x["surf_valid"] > 0.5
+    n0 = CB.LAUNCHES["K4"]
+    got = CB.closest_surface_ix(x["pts"], x["surf"], sv)
+    assert CB.LAUNCHES["K4"] == n0 + 1
+    want = CB.closest_surface_ix_plain(x["pts"], x["surf"],
+                                       CB.surface_bias(x["surf"], sv))
+    assert torch.equal(got, want)
+    none = CB.closest_surface_ix(x["pts"], x["surf"], torch.zeros_like(sv))
+    assert not none.any()  # no valid surface point: index 0, as argmin
+
+
+def _rf_loss(raw, graw):
+    eik = (graw.norm(dim=-1) - 1.0).abs().mean()
+    gsum = (graw * torch.tensor([0.2, -0.5, 1.0], device=graw.device)
+            ).sum(-1).mean()
+    return raw.abs().mean() + 0.3 * eik + 0.1 * gsum
+
+
+@pytest.mark.cuda
+def test_reverse_fused_kernels_match_plain_on_card():
+    """K2's raw and d raw/dx, and K3's gradient blocks on the same
+    cotangents, against make_reverse_fused_mlp's plain op."""
+    _need_card()
+    model, params, T, x = _setup("cuda")
+    args = TM._pe_factored(x["pts"], model, T)
+    out = {}
+    for kind, op in (("kernel", CRF.make_cuda_reverse_fused(model)),
+                     ("plain", make_reverse_fused_mlp(model))):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        raw, graw = op(p, *args)
+        out[kind] = (p, raw, graw)
+    (pk, rk, gk), (pp, rp, gp) = out["kernel"], out["plain"]
+    fwd = [_rel(rk, rp)] + [_rel(gk[:, c], gp[:, c]) for c in range(3)]
+    print(f"K2: raw, graw {fwd}")
+    assert max(fwd) <= TOL_RAW
+    draw, dgraw = torch.autograd.grad(_rf_loss(rk, gk), (rk, gk),
+                                      retain_graph=True)
+    n0 = dict(CRF.LAUNCHES)
+    kg = torch.autograd.grad((rk, gk), (pk["Wp"], pk["bp"]), (draw, dgraw))
+    assert CRF.LAUNCHES["K3"] == n0["K3"] + 1
+    pg = torch.autograd.grad((rp, gp), (pp["Wp"], pp["bp"]), (draw, dgraw))
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, *kg),
+                                       _blocks(model, *pg))]
+    print(f"K3: blocks {max(errs):.3e}")
+    assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+def test_reverse_fused_backward_kernel_is_deterministic_on_card():
+    """K3 has no atomics: two calls on the same inputs give the same
+    bits."""
+    _need_card()
+    model, params, T, x = _setup("cuda")
+    pe, _, dxs, dproj2 = TM._pe_factored(x["pts"], model, T)
+    Tc = K.tangent_rows(model, dxs, dproj2).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    draw = torch.randn(pe.shape[0], device="cuda", generator=g) * 1e-4
+    dgraw = torch.randn(pe.shape[0], 3, device="cuda", generator=g) * 1e-4
+    a = CRF.rf_backward_cuda(params, model, pe, Tc, draw, dgraw)
+    b = CRF.rf_backward_cuda(params, model, pe, Tc, draw, dgraw)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs,kernels", [
+    (dict(pe_in_kernel=False, use_pallas=True), ("K1-stream", "K4")),
+    (dict(grad_mode="reverse_fused", use_pallas=True), ("K4",)),
+])
+def test_trainer_new_paths_launch_once_per_step_on_card(knobs, kernels):
+    _need_card()
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import Config
+    cam = Config().camera.__class__(160, 120, 100.0, 100.0, 79.5, 59.5)
+    cfg = Config().replace(dataset_format="synthetic", bounds_method="pc",
+                           kf_buffer_size=16, camera=cam, **knobs)
+    tr = Trainer(cfg)
+    tr._per_step_device_s = 1.0 / 300
+    tr._bill_exact = True
+    counts = (K.LAUNCHES, CB.LAUNCHES, CRF.LAUNCHES)
+    n0 = {k: v for d in counts for k, v in d.items()}
+    res = train_loop(tr, max_steps=40)
+    n1 = {k: v for d in counts for k, v in d.items()}
+    assert res.steps == 40
+    assert {k: n1[k] - n0[k] for k in n1} == {
+        k: 40 if k in kernels else 0 for k in n1}
+
+
 def test_wrapper_refuses_cpu_tensors():
     """The kernel path takes CUDA tensors only; CPU tensors go to the plain
     version through make_train_op, never into the kernel."""
@@ -160,6 +289,22 @@ def test_wrapper_refuses_cpu_tensors():
                         K.tangent_rows(model, dxs, dproj2), x["pts"],
                         x["valid"], x["noise"], x["inv_count"],
                         bounds=x["bounds"], gt=x["gt"])
+
+
+def test_new_wrappers_refuse_cpu_tensors():
+    """K4's and K2/K3's kernel paths take CUDA tensors only."""
+    model, params, T, x = _setup("cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        CB.closest_surface_ix_cuda(x["pts"], x["surf"], x["surf_valid"])
+    pe, _, dxs, dproj2 = TM._pe_factored(x["pts"], model, T)
+    Tc = K.tangent_rows(model, dxs, dproj2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        CRF.rf_forward_cuda(params, model, pe, Tc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.train_op_cuda(params, model, K._loss_knobs(
+            model, free_space_factor=5.0, **KW), None, Tc, None, x["valid"],
+            x["noise"], x["inv_count"], bounds=x["bounds"], gt=x["gt"],
+            pe=pe)
 
 
 def test_plain_version_on_cpu_never_counts_a_launch():

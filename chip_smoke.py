@@ -18,7 +18,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      CUDA events, is printed beside it); the plain version's is taken with
      CUDA events;
   3. plant one fault per kernel added by the second slice (K1-stream, K4,
-     K2, K3) in a copy of its source, build the copies, and require each
+     K2, K3) and two in K1's staged products (accumulator rows g and g + 8
+     swapped in the forward epilogue; k_dw dropping the last slab of each
+     split) in copies of the sources, build the copies, and require each
      check to fail on its faulty kernel;
   4. drive the online trainer through its entry points (Trainer +
      train_loop) on isdf_tpu_torch/train/configs/synthetic.json with the
@@ -89,16 +91,26 @@ KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
 SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
              "K1-stream": "train_mlp", "K4": "bounds_pc",
              "K2": "reverse_fused", "K3": "reverse_fused"}
-# one planted fault per kernel of the second slice: (file, text, faulty)
-PLANTED = {
-    "K1-stream": ("mlp_tile.cuh", "(row < a.N && j < a.E) ?",
-                  "(row < a.N && j < a.E - 1) ?"),
-    "K4": ("bounds_pc.cu", "__fsub_rn(q.w, __fmul_rn(2.f, dot))",
-           "__fsub_rn(q.w, dot)"),
-    "K2": ("reverse_fused.cu", "a.graw_out[3 * r + 1] = g1[t.tid];",
-           "a.graw_out[3 * r + 1] = g2[t.tid];"),
-    "K3": ("reverse_fused.cu", "a.dg_in[3 * r + 1]", "a.dg_in[3 * r + 2]"),
-}
+# planted faults, one per kernel of the second slice and two in K1's
+# staged products: (label, kernel whose check must fail, file, text, faulty)
+PLANTED = (
+    ("K1-stream", "K1-stream", "mlp_tile.cuh", "(row < a.N && j < a.E) ?",
+     "(row < a.N && j < a.E - 1) ?"),
+    ("K4", "K4", "bounds_pc.cu", "__fsub_rn(q.w, __fmul_rn(2.f, dot))",
+     "__fsub_rn(q.w, dot)"),
+    ("K2", "K2", "reverse_fused.cu", "a.graw_out[3 * r + 1] = g1[t.tid];",
+     "a.graw_out[3 * r + 1] = g2[t.tid];"),
+    ("K3", "K3", "reverse_fused.cu", "a.dg_in[3 * r + 1]",
+     "a.dg_in[3 * r + 2]"),
+    # accumulator rows g and g + 8 swapped in the forward epilogue
+    ("K1 epilogue rows", "K1-pc", "mlp_tile.cuh",
+     "const int r = 16 * i + t.g + 8 * h;  // forward epilogue row",
+     "const int r = 16 * i + t.g + 8 * (1 - h);  // forward epilogue row"),
+    # k_dw drops the last slab of each split
+    ("k_dw last slab", "K1-pc", "mlp_tile.cuh",
+     "const int nslab = max(re - rb, 0) / DW_KS;",
+     "const int nslab = max(re - rb, 0) / DW_KS - 1;"),
+)
 
 
 class Mismatch(AssertionError):
@@ -123,6 +135,20 @@ def all_launches():
     from isdf_tpu_torch.ops import cuda_bounds
     return (cuda_mlp.LAUNCHES, cuda_bounds.LAUNCHES,
             cuda_reverse_fused.LAUNCHES)
+
+
+def occupancy(lib):
+    """Resident blocks per SM of K1's phases 1 and 2
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    fn = lib.isdf_train_mlp_occupancy
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(out)
+    assert rc == 0, f"occupancy query failed, CUDA error {rc}"
+    return {"k_train_tile<pc>": out[0], "k_train_tile<ray>": out[1],
+            "k_train_tile<stream>": out[2], "k_dw": out[3]}
 
 
 def reset_launches():
@@ -226,6 +252,29 @@ def byte_count(name, model, N, R):
     return ins + N * 4 + 5 * 4 + w
 
 
+def stash_bytes(name, model, N):
+    """Bytes K1 or K3 moves through its global scratch in one call, as the
+    code reads and writes it (per row of 256 lanes): phase 1 writes pe32,
+    peb, sig, hb, h5, u, tb, m0b, dzb, dub; reads sig back three times in
+    K1 (v-chain, tangent and backward chains; twice in K3), u, h5 and pe32
+    (twice in K1); k_dw reads the four operands of each of its nh + 1
+    GEMMs once; the split-K partials are written and read once. The
+    three-phase design cannot take less than these bytes over the memory
+    rate: its floor, beside the bound of byte_count and flop_count."""
+    from isdf_tpu_torch.models.cuda_mlp import k1_geometry
+    geo = k1_geometry(N, model.n_layers)
+    nh, H = model.n_layers - 1, model.hidden_size
+    write = 4 + 2 + 4 * nh + 2 * (nh - 1) + 4 + 4 * nh + 2 * (nh - 1) + 2 \
+        + 2 * nh + 2 * nh
+    if name.startswith("K1"):
+        read = 4 * 3 * nh + 4 * nh + 4 + 4 * 2
+    else:
+        read = 4 * 2 * nh + 4 * nh + 4 + 4
+    read_dw = 4 * (2 * nh + 2)
+    partials = 2 * geo["S"] * (nh + 1) * H * H * 4
+    return geo["NP"] * H * (write + read + read_dw) + partials
+
+
 def time_ms(torch, fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -241,7 +290,8 @@ def time_ms(torch, fn, reps):
 
 def device_ms(torch, name, fn, reps):
     """Device ms per call of ``fn`` spent in the kernel's own launches,
-    read from a torch.profiler trace of the card."""
+    read from a torch.profiler trace of the card, in all and by device
+    kernel (KERNEL_NAMES)."""
     from torch.profiler import ProfilerActivity, profile
 
     from isdf_tpu_torch.train.profile_step import kernel_intervals
@@ -256,10 +306,12 @@ def device_ms(torch, name, fn, reps):
         prof.export_chrome_trace(path)
         ivs = kernel_intervals(path)
     names = KERNEL_NAMES[name]
-    mine = [dur for _, dur, n in ivs if any(k in n for k in names)]
-    expect(len(mine) == reps * len(names),
-           f"{name}: {len(mine)} traced launches of {names} in {reps} calls")
-    return sum(mine) / 1e3 / reps
+    parts = {k: [dur for _, dur, n in ivs if k in n] for k in names}
+    for k, durs in parts.items():
+        expect(len(durs) == reps,
+               f"{name}: {len(durs)} traced launches of {k} in {reps} calls")
+    parts = {k: sum(durs) / 1e3 / reps for k, durs in parts.items()}
+    return sum(parts.values()), parts
 
 
 def rel_err(a, b):
@@ -300,7 +352,7 @@ class Setup:
 
     def row(self, torch, name, max_abs, fn, plain):
         call_ms = time_ms(torch, fn, 20)
-        ms = device_ms(torch, name, fn, 20)
+        ms, parts = device_ms(torch, name, fn, 20)
         plain_ms = time_ms(torch, plain, 3)
         fb, ff = flop_count(name, self.model, self.N, self.R)
         nbytes = byte_count(name, self.model, self.N, self.R)
@@ -312,12 +364,19 @@ class Setup:
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({(fb + ff) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)",
               flush=True)
+        print(f"{name}: device ms by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+        if name.startswith("K1") or name == "K3":
+            sb = stash_bytes(name, self.model, self.N)
+            print(f"{name}: design floor {1e3 * sb / PEAK_BYTES:.4f} ms "
+                  f"(stash {sb / 1e9:.3f} GB at {PEAK_BYTES / 1e12} TB/s)",
+                  flush=True)
         return dict(name=name, route="cuda",
                     source=f"isdf_tpu_torch/csrc/{SOURCE_OF[name]}.cu",
                     replaces=REPLACES[name], launches=0, max_abs_err=max_abs,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    library_ms=None)
+                    library_ms=None, parts=parts)
 
 
 def check_k1(torch, s, name, timed=True):
@@ -522,36 +581,36 @@ def check(torch, s, name, timed=True):
 
 
 def planted_faults(torch, s):
-    """Each new kernel's check must fail on a copy of its source with one
-    fault planted."""
+    """Each check must fail on a copy of the sources with one fault
+    planted."""
     from isdf_tpu_torch.utils import nvcc
     base = os.path.join(nvcc.build_dir(), "planted")
     dirs = {}
-    for name, (fname, text, faulty) in PLANTED.items():
-        d = os.path.join(base, name)
+    for label, _, fname, text, faulty in PLANTED:
+        d = os.path.join(base, label.replace(" ", "_"))
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(nvcc.CSRC, d)
         path = os.path.join(d, fname)
         with open(path) as f:
             src = f.read()
-        assert src.count(text) == 1, f"{name}: planted text not found once"
+        assert src.count(text) == 1, f"{label}: planted text not found once"
         with open(path, "w") as f:
             f.write(src.replace(text, faulty))
-        dirs[name] = d
+        dirs[label] = d
     t0 = time.perf_counter()
-    nvcc.build([(dirs[n], SOURCE_OF[n]) for n in PLANTED])
+    nvcc.build([(dirs[p[0]], SOURCE_OF[p[1]]) for p in PLANTED])
     print(f"planted faults: built {len(PLANTED)} copies in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, d in dirs.items():
-        with nvcc.sources_from(d):
+    for label, name, fname, _, _ in PLANTED:
+        with nvcc.sources_from(dirs[label]):
             try:
                 check(torch, s, name, timed=False)
             except Mismatch as e:
-                print(f"planted fault in {name} ({PLANTED[name][0]}): the "
-                      f"check fails as it must: {e}", flush=True)
+                print(f"planted fault {label} ({fname}): the {name} check "
+                      f"fails as it must: {e}", flush=True)
             else:
                 raise AssertionError(
-                    f"{name}: the check passed on a planted fault")
+                    f"{label}: the {name} check passed on a planted fault")
 
 
 def run_trainer(torch, overrides, max_steps, sim_dt):
@@ -711,10 +770,15 @@ def main():
     nvcc.load_all(SOURCES)
     print(f"build: {time.perf_counter() - t0:.1f} s for {SOURCES}",
           flush=True)
-    for name, info in nvcc.BUILD_INFO.items():
+    for (_, name), info in nvcc.BUILD_INFO.items():  # csrc/ only so far
         for line in info["nvcc_log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                        "spill")):
                 print(f"ptxas [{name}]:", line.strip())
+
+    occ = occupancy(nvcc.load("train_mlp"))
+    print("occupancy, resident blocks per SM: " + ", ".join(
+        f"{k} {v}" for k, v in occ.items()), flush=True)
 
     # ---- phase 2: kernels vs plain versions ----
     s = Setup(torch)

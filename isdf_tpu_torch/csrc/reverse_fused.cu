@@ -27,9 +27,11 @@
 //  * K2 is the first half of the fused train op's phase 1 (mlp_tile.cuh):
 //    one block per 64-row tile, sig of the six hidden layers stashed in
 //    global f32 scratch (6 x 64 x 256 x 4 B = 393 KB per tile does not fit
-//    227 KB of shared memory), read back coalesced by the v-chain. sig is
-//    kept in f32: the products round their operands to bf16 only after the
-//    f32 multiply, as the plain version does.
+//    227 KB of shared memory), read back by the v-chain's register
+//    epilogues. sig is kept in f32: the products round their operands to
+//    bf16 only after the f32 multiply, as the plain version does. The
+//    products are the staged mma.sync products of mlp_tile.cuh, two blocks
+//    to an SM.
 //  * The TPU kernel B accumulates dW and db in outputs resident across a
 //    sequential grid. Here K3 runs the train op's three phases: per-tile
 //    bf16 operands and f32 partials (k_rf_vjp_tile), split-K dW GEMMs
@@ -42,15 +44,15 @@
 #include "mlp_tile.cuh"
 
 // K2: raw [N] and graw [N, 3] of the points of one 64-row tile.
-__global__ void __launch_bounds__(NTHR, 1) k_rf_forward(Args a) {
+__global__ void __launch_bounds__(NTHR, 2) k_rf_forward(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
   __shared__ float raw[TM], g0[TM], g1[TM], g2[TM];
 
   tile_pe_stream(a, t);
-  tile_forward(a, t, false);
+  tile_forward(a, t, false, true);
   tile_head(a, t, raw);
-  tile_vchain(a, t);
+  tile_vchain(a, t, false);
   tile_spatial_grad(a, t, g0, g1, g2);
   if (t.tid < TM) {
     const int r = t.r0 + t.tid;
@@ -65,7 +67,7 @@ __global__ void __launch_bounds__(NTHR, 1) k_rf_forward(Args a) {
 
 // K3, phase 1: the parameter VJP of one tile from the cotangents of raw
 // (draw [N]) and graw (dgraw [N, 3]).
-__global__ void __launch_bounds__(NTHR, 1) k_rf_vjp_tile(Args a) {
+__global__ void __launch_bounds__(NTHR, 2) k_rf_vjp_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
   __shared__ float draw[TM], dg0[TM], dg1[TM], dg2[TM];
@@ -79,17 +81,15 @@ __global__ void __launch_bounds__(NTHR, 1) k_rf_vjp_tile(Args a) {
     dg2[t.tid] = in ? a.dg_in[3 * r + 2] : 0.f;
   }
   tile_pe_stream(a, t);  // ends with a barrier: the cotangents are visible
-  tile_forward(a, t, true);
+  tile_forward(a, t, true, false);
   tile_param_vjp(a, t, draw, dg0, dg1, dg2);
 }
 
 static void set_smem_once() {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaFuncSetAttribute(k_rf_forward,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN);
-    cudaFuncSetAttribute(k_rf_vjp_tile,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN);
+    allow_smem(k_rf_forward, SMEM_DYN);
+    allow_smem(k_rf_vjp_tile, SMEM_DYN);
     attr_set = true;
   }
 }

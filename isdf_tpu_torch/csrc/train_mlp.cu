@@ -22,34 +22,41 @@
 // What bounds it on this card. Per point the op does ~45 products of a
 // 256-vector with a 256x256 matrix (~5.9 MFLOP), so at the trainer's
 // 27,000 points a step is ~160 GFLOP: 0.16 ms at the 989 TFLOP/s dense
-// bf16 peak. Its inputs and outputs are a few MB (the streamed pe 27.5 MB),
-// so it is bound by operations, and everything it stashes between phases
-// is traffic the bound does not count.
+// bf16 peak. Its inputs and outputs are a few MB (the streamed pe 27.5 MB).
+// The three-phase design below adds its stash: sig and u of every hidden
+// layer in f32, the bf16 dW operands and the split-K partials, ~1.9 GB a
+// call at 27,000 points, 0.57 ms at 3.35 TB/s (chip_smoke.py,
+// stash_bytes). That, not the tensor-core rate, is this design's floor.
 //
-// What the design does about it (a simple kernel that is right first):
+// What the design does about it:
 //  * The TPU grid is sequential and accumulates dW in resident outputs.
 //    Here phase 1 (k_train_tile) runs one block per 64-row tile, all in
 //    parallel; it writes the bf16 operands of the dW products (a, ta, dz,
 //    du per layer) to global scratch, and per-tile f32 partials of the bias
 //    gradients, the output-layer gradient and the five loss sums.
 //    Phase 2 (k_dw) forms dW_l = [a; ta]^T [dz; du] as split-K GEMMs over
-//    all rows, one partial per split. Phase 3 (k_reduce) sums the partials
+//    all rows, one partial per split, on 128x128 tiles fed through a
+//    cp.async ring in shared memory. Phase 3 (k_reduce) sums the partials
 //    in a fixed order. No atomics: the result is the same on every run.
-//  * 227 KB of shared memory cannot hold the TPU's per-layer stash of
-//    sig/u/h/t (1.5 MB at 64 rows). The block keeps only its current
-//    operands in shared memory (two bf16 [64,256] tiles, two f32 [64,256]
-//    accumulator tiles, 196 KB) and stashes sig and u per layer in global
-//    f32 scratch: it is read back once, coalesced, and stays far below the
-//    time of the products.
-//  * Hidden products are bf16 wmma fragments (16x16x16, f32 accumulate),
-//    the weights read straight from global memory (L2-resident, 1.8 MB).
-//    The PE, the pc scores, the tangent contractions and the output head
-//    stay IEEE f32 on the CUDA cores; the PE and score sums are written
+//  * Phase 1's products are mma.sync on weights staged in shared memory by
+//    cp.async, k-slab by k-slab, and their epilogues run on the
+//    accumulator registers (mlp_tile.cuh). Without f32 accumulator tiles
+//    a block takes 113 KB of shared memory, so two blocks share an SM and
+//    one block's epilogue (the stash loads and stores) runs under the
+//    other's products. An epilogue issues the stash loads of a whole
+//    m-tile of its fragments at once, a per-row pass those of eight rows,
+//    and the next product's first weight slab is in flight during the
+//    epilogue before it.
+//  * The PE, the pc scores, the tangent contractions and the output head
+//    stay IEEE f32 on the CUDA cores (the pc score rows staged in shared
+//    memory through the ring, idle before the first product); the PE and
+//    score sums are written
 //    with __fmul_rn/__fadd_rn so they round exactly as the eager torch
 //    version does, which keeps both on the same argmin.
 //  * The streamed mode derives cb = [1,1,1 | cos | -sin | 0] from the pe
 //    row by index arithmetic (cb_at), as _cb_from_pe does with lane rolls.
-//  * wgmma, TMA and a persistent pipelined schedule are later work.
+//  * Next: wgmma fed by TMA rings on the staged operands, aimed at the
+//    stash floor.
 //
 // The per-tile stages and phases 2-3 live in mlp_tile.cuh, shared with the
 // reverse-fused op (reverse_fused.cu).
@@ -60,7 +67,7 @@ enum { MODE_PC = 0, MODE_RAY = 1, MODE_STREAM = 2 };
 
 // Phase 1: one block per 64-row tile.
 template <int MODE>
-__global__ void __launch_bounds__(NTHR, 1) k_train_tile(Args a) {
+__global__ void __launch_bounds__(NTHR, 2) k_train_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
   bf16 *X = t.X, *X2 = t.X2;
@@ -123,12 +130,27 @@ __global__ void __launch_bounds__(NTHR, 1) k_train_tile(Args a) {
     const float x = px[rr], y = py[rr], z = pz[rr];
     float best = __int_as_float(0x7f800000);
     int bi = 0x7fffffff;
-    for (int s = sub; s < a.R; s += 4) {
-      float sc = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(x, a.sp[s]), __fmul_rn(y, a.sp[a.R + s])),
-                    __fmul_rn(z, a.sp[2 * a.R + s])),
-          a.sp[3 * a.R + s]);
-      if (sc < best) { best = sc; bi = s; }
+    // the score rows staged through the ring (idle until the forward
+    // products) in chunks of SP_CHUNK surface points, one float4 each; a
+    // chunk is a multiple of 4, so each thread still scans its indices in
+    // increasing order
+    float4 *spq = reinterpret_cast<float4 *>(t.ring);
+    const int SP_CHUNK = NSTAGE * STAGE_ELEMS * (int)sizeof(bf16) / 16;
+    for (int c0 = 0; c0 < a.R; c0 += SP_CHUNK) {
+      const int n = min(SP_CHUNK, a.R - c0);
+      __syncthreads();
+      for (int s = tid; s < n; s += NTHR)
+        spq[s] = make_float4(a.sp[c0 + s], a.sp[a.R + c0 + s],
+                             a.sp[2 * a.R + c0 + s], a.sp[3 * a.R + c0 + s]);
+      __syncthreads();
+      for (int s = sub; s < n; s += 4) {
+        const float4 q = spq[s];
+        float sc = __fadd_rn(
+            __fadd_rn(__fadd_rn(__fmul_rn(x, q.x), __fmul_rn(y, q.y)),
+                      __fmul_rn(z, q.z)),
+            q.w);
+        if (sc < best) { best = sc; bi = c0 + s; }
+      }
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -156,9 +178,9 @@ __global__ void __launch_bounds__(NTHR, 1) k_train_tile(Args a) {
   __syncthreads();
 
   // ---- forward values, output head, v-chain, spatial gradient ----
-  tile_forward(a, t, true);
+  tile_forward(a, t, true, true);
   tile_head(a, t, raw);
-  tile_vchain(a, t);
+  tile_vchain(a, t, true);
   tile_spatial_grad(a, t, g0, g1, g2);
 
   // ---- per-point loss and its hand-derived backward ----
@@ -237,7 +259,31 @@ __global__ void __launch_bounds__(NTHR, 1) k_train_tile(Args a) {
   tile_param_vjp(a, t, draw, dg0, dg1, dg2);
 }
 
-extern "C" int isdf_train_mlp_smem_bytes() { return SMEM_DYN; }
+static void set_attrs_once() {
+  static bool attr_set = false;
+  if (!attr_set) {
+    allow_smem(k_train_tile<MODE_PC>, SMEM_DYN);
+    allow_smem(k_train_tile<MODE_RAY>, SMEM_DYN);
+    allow_smem(k_train_tile<MODE_STREAM>, SMEM_DYN);
+    allow_smem(k_dw, SMEM_DW);
+    attr_set = true;
+  }
+}
+
+// Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+// out[0..2] k_train_tile in modes pc, ray, stream; out[3] k_dw. Returns
+// the CUDA error code.
+extern "C" int isdf_train_mlp_occupancy(int *out) {
+  set_attrs_once();
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k_train_tile<MODE_PC>,
+                                                NTHR, SMEM_DYN);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], k_train_tile<MODE_RAY>,
+                                                NTHR, SMEM_DYN);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], k_train_tile<MODE_STREAM>, NTHR, SMEM_DYN);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], k_dw, NTHR, SMEM_DW);
+  return (int)cudaGetLastError();
+}
 
 // ptrs, knobs, ints: see args_from (mlp_tile.cuh); ints[10] is the mode
 // (0 pc, 1 ray, 2 stream). Returns the cudaGetLastError() code after the
@@ -247,17 +293,7 @@ extern "C" int isdf_train_mlp(const long long *ptrs, const float *knobs,
   Args a = args_from(ptrs, knobs, ints);
   const int mode = ints[10];
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaFuncSetAttribute(k_train_tile<MODE_PC>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN);
-    cudaFuncSetAttribute(k_train_tile<MODE_RAY>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN);
-    cudaFuncSetAttribute(k_train_tile<MODE_STREAM>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN);
-    attr_set = true;
-  }
+  set_attrs_once();
   const int n_tiles = a.NP / TM;
   if (mode == MODE_PC) k_train_tile<MODE_PC><<<n_tiles, NTHR, SMEM_DYN, st>>>(a);
   else if (mode == MODE_RAY) k_train_tile<MODE_RAY><<<n_tiles, NTHR, SMEM_DYN, st>>>(a);

@@ -44,7 +44,8 @@ from isdf_tpu_torch.utils import nvcc
 
 HID = 256
 TM = 64           # rows per tile of the kernels' first phase
-N_SPLITS = 8      # split-K partials of the dW products
+N_SPLITS = 16     # split-K partials of the dW products
+DW_SLAB = 32      # rows per shared-memory slab of k_dw (csrc: DW_KS)
 HALF_PI = float(np.float32(np.pi / 2))
 
 # kernel launches per variant; only the wrapper below adds to them
@@ -55,7 +56,7 @@ MODES = {"K1-pc": 0, "K1-ray": 1, "K1-stream": 2}
 # struct Args), in declaration order
 ARG_PTRS = ("pts", "valid", "noise", "col_a", "vec3", "is_surf", "sp",
             "surf", "Mc", "Tc", "b", "w_out", "inv_count", "W", "ploss",
-            "sums", "dW", "db", "pe32", "sig", "u", "h5", "t5", "peb", "m0b",
+            "sums", "dW", "db", "pe32", "sig", "u", "h5", "peb", "m0b",
             "hb", "tb", "dzb", "dub", "part_scal", "part_db", "part_dwout",
             "part_dw", "pe_in", "raw_out", "graw_out", "draw_in", "dg_in")
 
@@ -239,26 +240,36 @@ def weight_args(params, model: SDFModel):
                 w_out=Wp[L - 1, :HID, 0].contiguous())
 
 
-def vjp_scratch(model: SDFModel, NP: int, dev):
-    """Scratch of the parameter-VJP phases (sig/u stash, bf16 dW operands,
-    per-tile and split-K partials)."""
-    L = model.n_layers
+BF16_SCRATCH = ("peb", "m0b", "hb", "tb", "dzb", "dub")
+
+
+def k1_geometry(N: int, L: int) -> dict:
+    """Launch geometry of the MLP kernels' phases for N points and L packed
+    layers: NP rows in n_tiles tiles of TM (phase 1), S splits of rps rows
+    each, a multiple of the k_dw slab (phase 2), and the shapes of the
+    scratch the phases pass on (phase 3 reads the partials)."""
     nh = L - 1
-    f32, b16 = torch.float32, torch.bfloat16
+    NP = _round_up(max(N, 1), TM)
+    n_tiles = NP // TM
+    rps = _round_up(-(-NP // N_SPLITS), DW_SLAB)
+    shapes = dict(
+        pe32=(NP, HID), sig=(nh, NP, HID), u=(nh, NP, HID), h5=(NP, HID),
+        peb=(NP, HID), m0b=(NP, HID), hb=(max(nh - 1, 1), NP, HID),
+        tb=(max(nh - 1, 1), NP, HID), dzb=(nh, NP, HID), dub=(nh, NP, HID),
+        part_scal=(n_tiles, 8), part_db=(n_tiles, L * HID),
+        part_dwout=(n_tiles, HID), part_dw=(N_SPLITS, nh + 1, HID, HID),
+        dW=(L, 2 * HID, HID), db=(L, HID))
+    return dict(NP=NP, n_tiles=n_tiles, S=N_SPLITS, rps=rps, slab=DW_SLAB,
+                shapes=shapes)
 
-    def e(*shape, dtype=f32):
-        return torch.empty(shape, dtype=dtype, device=dev)
 
-    return dict(
-        pe32=e(NP, HID), sig=e(nh, NP, HID), u=e(nh, NP, HID),
-        h5=e(NP, HID), t5=e(NP, HID),
-        peb=e(NP, HID, dtype=b16), m0b=e(NP, HID, dtype=b16),
-        hb=e(max(nh - 1, 1), NP, HID, dtype=b16),
-        tb=e(max(nh - 1, 1), NP, HID, dtype=b16),
-        dzb=e(nh, NP, HID, dtype=b16), dub=e(nh, NP, HID, dtype=b16),
-        part_db=e(NP // TM, L * HID), part_dwout=e(NP // TM, HID),
-        part_dw=e(N_SPLITS, nh + 1, HID, HID),
-        dW=e(L, 2 * HID, HID), db=e(L, HID))
+def vjp_scratch(model: SDFModel, N: int, dev):
+    """Scratch of the parameter-VJP phases for N points (sig/u stash, bf16
+    dW operands, per-tile and split-K partials) and the dW/db outputs."""
+    shapes = k1_geometry(N, model.n_layers)["shapes"]
+    return {k: torch.empty(shape, device=dev, dtype=torch.bfloat16
+                           if k in BF16_SCRATCH else torch.float32)
+            for k, shape in shapes.items()}
 
 
 def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
@@ -268,15 +279,14 @@ def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
     null)."""
     unknown = set(ptrs) - set(ARG_PTRS)
     assert not unknown, unknown
-    NP = _round_up(N, TM)
-    rps = _round_up(-(-NP // N_SPLITS), 16)
+    geo = k1_geometry(N, model.n_layers)
     lk = lk or dict(so=0.0, trunc_d=0.0, tw=0.0, gw=0.0, ew=0.0, ead=0.0,
                     fsf=0.0, loss_type="L1", orien=False)
     knobs = [lk["so"], lk["trunc_d"], lk["tw"], lk["gw"], lk["ew"],
              lk["ead"], lk["fsf"]]
-    ints = [N, NP, R, model.n_layers, model.cat_idx, model.embedding_size,
-            int(lk["loss_type"] == "L1"), int(lk["orien"]), N_SPLITS, rps,
-            *extra_ints]
+    ints = [N, geo["NP"], R, model.n_layers, model.cat_idx,
+            model.embedding_size, int(lk["loss_type"] == "L1"),
+            int(lk["orien"]), geo["S"], geo["rps"], *extra_ints]
     nvcc.call(lib, fn_name, [ptrs.get(k) for k in ARG_PTRS], knobs, ints,
               ptrs["W"].device)
 
@@ -320,11 +330,9 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
         _check("gt", gt, (N, 3))
         ptrs.update(col_a=bounds, vec3=gt)
 
-    NP = _round_up(N, TM)
-    ptrs.update(vjp_scratch(model, NP, dev))
+    ptrs.update(vjp_scratch(model, N, dev))
     ptrs.update(ploss=torch.empty(N, device=dev),
-                sums=torch.empty(5, device=dev),
-                part_scal=torch.empty(NP // TM, 8, device=dev))
+                sums=torch.empty(5, device=dev))
     launch(nvcc.load("train_mlp"), "isdf_train_mlp", model, N, ptrs, lk=lk,
            R=R, extra_ints=(MODES[name],))
     LAUNCHES[name] += 1

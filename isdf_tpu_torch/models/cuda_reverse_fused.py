@@ -57,10 +57,10 @@ def rf_forward_cuda(params, model: SDFModel, pe, Tc):
 
 def rf_backward_cuda(params, model: SDFModel, pe, Tc, draw, dgraw):
     """K3 on the current stream -> (dWp, dbp) on the packed planes."""
-    N, NP, ptrs = _inputs(params, model, pe, Tc)
+    N, _, ptrs = _inputs(params, model, pe, Tc)
     K._check("draw", draw, (N,))
     K._check("dgraw", dgraw, (N, 3))
-    ptrs.update(K.vjp_scratch(model, NP, pe.device))
+    ptrs.update(K.vjp_scratch(model, N, pe.device))
     ptrs.update(draw_in=draw, dg_in=dgraw)
     K.launch(nvcc.load("reverse_fused"), "isdf_rf_backward", model, N, ptrs)
     LAUNCHES["K3"] += 1

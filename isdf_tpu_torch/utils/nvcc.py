@@ -29,8 +29,8 @@ import torch
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 
-# nvcc's output (its -Xptxas -v report) and build seconds, per library of
-# the package's own csrc/
+# nvcc's output (its -Xptxas -v report) and build seconds, per (source
+# dir, library) built by this process
 BUILD_INFO = {}
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -83,9 +83,8 @@ def _build(pairs):
     failed = []
     for out, (name, proc, tmp, t0) in procs.items():
         log, _ = proc.communicate()
-        if os.path.dirname(proc.args[-1]) == CSRC:
-            BUILD_INFO[name] = {"nvcc_log": log,
-                                "build_s": time.perf_counter() - t0}
+        BUILD_INFO[(os.path.dirname(proc.args[-1]), name)] = {
+            "nvcc_log": log, "build_s": time.perf_counter() - t0}
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {name}.cu:\n{log}")
         else:

@@ -71,13 +71,13 @@ def _args(params, T, x, pc):
             x["gt"], x["inv_count"])
 
 
-def _setup(device):
+def _setup(device, R=200):
     model = TM.SDFModel()
     params = TM.init_params(torch.Generator().manual_seed(0), model,
                             device=device)
     T = torch.eye(4, device=device)
     T[:3, 3] = torch.tensor([0.1, -0.2, 0.3], device=device)
-    return model, params, T, _inputs(device)
+    return model, params, T, _inputs(device, R=R)
 
 
 def _blocks(model, dW, db):
@@ -131,6 +131,46 @@ def test_kernel_is_deterministic_on_card():
     """No atomics: two calls on the same inputs give the same bits."""
     _need_card()
     model, params, T, x = _setup("cuda")
+    op = K.make_train_op(model, **KW, pc_bounds=True)
+    a = op(*_args(params, T, x, True))
+    b = op(*_args(params, T, x, True))
+    for u, v in zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2])):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc", [True, False])
+def test_kernel_matches_plain_at_a_ragged_size_on_card(pc):
+    """N = 5,373 (199 rays x 27): the last tile holds 61 rows and the last
+    of the split-K row ranges 96 rows against 352 for the others."""
+    _need_card()
+    model, params, T, x = _setup("cuda", R=199)
+    N = x["pts"].shape[0]
+    geo = K.k1_geometry(N, model.n_layers)
+    assert N % K.TM and geo["NP"] - (geo["S"] - 1) * geo["rps"] < geo["rps"]
+    op = K.make_train_op(model, **KW, pc_bounds=pc)
+    ks, kp, (kdw, kdb) = op(*_args(params, T, x, pc))
+    M, dxs, dproj2 = TM._pe_consts(model, T, device="cuda")
+    lk = K._loss_knobs(model, free_space_factor=5.0, **KW)
+    kw = (dict(surf=x["surf"], surf_valid=x["surf_valid"], zd=x["zd"],
+               normals_pt=x["normals_pt"], is_surf=x["is_surf"])
+          if pc else dict(bounds=x["bounds"], gt=x["gt"]))
+    ps, pp, (pdw, pdb) = K.train_op_plain(
+        params, model, lk, M, K.tangent_rows(model, dxs, dproj2), x["pts"],
+        x["valid"], x["noise"], x["inv_count"], **kw)
+    torch.cuda.synchronize()
+    assert ((ks - ps).abs() / ps.abs()).max().item() <= TOL_SUMS_REL
+    assert kp.shape == (N,) and _rel(kp, pp) <= TOL_PLOSS
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, kdw, kdb),
+                                       _blocks(model, pdw, pdb))]
+    assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_at_full_size_on_card():
+    """N = 27,000, the trainer's size: two calls give the same bits."""
+    _need_card()
+    model, params, T, x = _setup("cuda", R=1000)
     op = K.make_train_op(model, **KW, pc_bounds=True)
     a = op(*_args(params, T, x, True))
     b = op(*_args(params, T, x, True))

@@ -13,15 +13,20 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      K1-pc, K1-ray, K1-stream (the fused train op), K4 (nearest surface
      point), K2 and K3 (the reverse-fused op, forward and backward); each
      is also called twice on the same inputs and must give the same bits.
-     A kernel's time is the device time of its launches in a torch.profiler
-     trace of the card (the time of its wrapper's calls back to back, by
-     CUDA events, is printed beside it); the plain version's is taken with
-     CUDA events;
+     K4 is held on five inputs (the trainer's, exact ties, ragged M and R,
+     one valid surface point, none), must be one launch a call with no
+     other device kernel, and is timed beside the port's matmul route for
+     the same indices (a yardstick); --kernels-only also times K4 at other
+     launch geometries (K4_VARIANTS). A kernel's time is the device time
+     of its launches in a torch.profiler trace of the card (the time of its
+     wrapper's calls back to back, by CUDA events, is printed beside it);
+     the plain version's is taken with CUDA events;
   3. plant one fault per kernel added by the second slice (K1-stream, K4,
-     K2, K3) and two in K1's staged products (accumulator rows g and g + 8
+     K2, K3), two in K1's staged products (accumulator rows g and g + 8
      swapped in the forward epilogue; k_dw dropping the last slab of each
-     split) in copies of the sources, build the copies, and require each
-     check to fail on its faulty kernel;
+     split) and a second in K4 (its merge of the groups preferring the
+     later group on equal minima) in copies of the sources, build the
+     copies, and require each check to fail on its faulty kernel;
   4. drive the online trainer through its entry points (Trainer +
      train_loop) on isdf_tpu_torch/train/configs/synthetic.json with the
      simulated clock pinned, 600 steps per path: as shipped (pc bounds ->
@@ -91,13 +96,19 @@ KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
 SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
              "K1-stream": "train_mlp", "K4": "bounds_pc",
              "K2": "reverse_fused", "K3": "reverse_fused"}
-# planted faults, one per kernel of the second slice and two in K1's
-# staged products: (label, kernel whose check must fail, file, text, faulty)
+# planted faults, one per kernel of the second slice, two in K1's staged
+# products and a second in K4's group merge: (label, kernel whose check
+# must fail, file, text, faulty)
 PLANTED = (
     ("K1-stream", "K1-stream", "mlp_tile.cuh", "(row < a.N && j < a.E) ?",
      "(row < a.N && j < a.E - 1) ?"),
-    ("K4", "K4", "bounds_pc.cu", "__fsub_rn(q.w, __fmul_rn(2.f, dot))",
-     "__fsub_rn(q.w, dot)"),
+    # K4 without the factor 2 on the staged coordinates
+    ("K4", "K4", "bounds_pc.cu",
+     "__fmul_rn(-2.f, sx), __fmul_rn(-2.f, sy), __fmul_rn(-2.f, sz)",
+     "-sx, -sy, -sz"),
+    # K4's group merge prefers the later group on equal minima
+    ("K4 merge ties", "K4", "bounds_pc.cu",
+     "if (mg < b) {", "if (mg <= b) {"),
     ("K2", "K2", "reverse_fused.cu", "a.graw_out[3 * r + 1] = g1[t.tid];",
      "a.graw_out[3 * r + 1] = g2[t.tid];"),
     ("K3", "K3", "reverse_fused.cu", "a.dg_in[3 * r + 1]",
@@ -233,14 +244,14 @@ def flop_count(name, model, N, R):
     if name == "K3":
         return ((nh + 1) * 2 + 2 * (nh - 1) + 2 * (nh + 1)) * mm, \
             N * (2 * 3 * 256 + 2 * 2 * 256)
-    return 0, 7 * N * R                                          # K4
+    return 0, 7 * N * R + 5 * R  # K4: 6 and a compare a pair, 5 a bias
 
 
 def byte_count(name, model, N, R):
     """Each input read once, each output written once."""
     L, E = model.n_layers, model.embedding_size
     w = L * 512 * 256 * 4 + L * 256 * 4
-    if name == "K4":
+    if name == "K4":  # points, surf, valid (one byte each), int64 out
         return N * 3 * 4 + R * 3 * 4 + R + N * 8
     if name == "K2":
         return N * E * 4 + w + 3 * 256 * 4 + N * 4 * 4
@@ -288,10 +299,10 @@ def time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(torch, name, fn, reps):
-    """Device ms per call of ``fn`` spent in the kernel's own launches,
-    read from a torch.profiler trace of the card, in all and by device
-    kernel (KERNEL_NAMES)."""
+def traced_kernels(torch, fn, reps):
+    """[(start_us, dur_us, name)] of the device kernels of ``reps`` calls
+    of ``fn`` (after one untraced call) in a torch.profiler trace of the
+    card."""
     from torch.profiler import ProfilerActivity, profile
 
     from isdf_tpu_torch.train.profile_step import kernel_intervals
@@ -304,7 +315,14 @@ def device_ms(torch, name, fn, reps):
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
-        ivs = kernel_intervals(path)
+        return kernel_intervals(path)
+
+
+def device_ms(torch, name, fn, reps):
+    """Device ms per call of ``fn`` spent in the kernel's own launches,
+    read from a torch.profiler trace of the card, in all and by device
+    kernel (KERNEL_NAMES)."""
+    ivs = traced_kernels(torch, fn, reps)
     names = KERNEL_NAMES[name]
     parts = {k: [dur for _, dur, n in ivs if k in n] for k in names}
     for k, durs in parts.items():
@@ -445,42 +463,124 @@ def check_k1(torch, s, name, timed=True):
     return s.row(torch, name, max_abs, lambda: op(*args), plain)
 
 
+def k4_cases(torch, x):
+    """K4's inputs on the card, (name, points, surf, valid): the trainer's
+    (its surface set the strided view pc[:, 0]); exact ties (every surface
+    point twice, at k and k + 500, so in other groups of the kernel, most
+    also at r and r + 8, in one group's consecutive runs, and +-pairs on
+    the axes with points on the orthogonal axes); a ragged one;
+    one valid surface point; none valid."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+
+    def cuda(a):
+        return torch.as_tensor(a).cuda()
+
+    pts, ray_valid = x["pts"], x["ray_valid"]
+    surf = x["pc"][:, 0]
+    axes = np.array([[2, 0, 0], [-2, 0, 0], [0, 2, 0], [0, -2, 0],
+                     [0, 0, 2], [0, 0, -2]], np.float32)
+    # rows r and r + 8 equal: the same group, consecutive runs of rows
+    u = rng.normal(size=(31, 8, 3)).astype(np.float32)
+    half = np.concatenate([np.concatenate([u, u], 1).reshape(-1, 3)[:494],
+                           axes])
+    on_axes = np.zeros((6000, 3), np.float32)
+    on_axes[np.arange(6000), rng.integers(0, 3, 6000)] = \
+        rng.integers(-4, 5, 6000) * 0.25
+    tie_valid = np.ones(1000, bool)
+    tie_valid[[494, 995]] = False
+    one = torch.zeros_like(ray_valid)
+    one[737] = True
+    rag = x["pc"][:199].reshape(-1, 3)  # 5,373 points
+    return [
+        ("trainer", pts, surf, ray_valid),
+        ("ties", cuda(np.concatenate([
+            on_axes, rng.normal(size=(21000, 3)).astype(np.float32)])),
+         cuda(np.concatenate([half, half])), cuda(tie_valid)),
+        ("ragged", rag, surf[3:].contiguous(), ray_valid[3:].contiguous()),
+        ("one valid", pts, surf, one),
+        ("none valid", pts, surf, torch.zeros_like(ray_valid)),
+    ]
+
+
+K4_VARIANTS = ((256, 8, 7), (512, 16, 7), (384, 12, 7), (128, 4, 7),
+               (256, 8, 8), (256, 8, 4), (512, 16, 4), (256, 8, 2),
+               (256, 8, 1), (512, 16, 1))
+
+
+def k4_variants(torch, x):
+    """K4 at other launch geometries (threads, splits, points a thread) on
+    the trainer's inputs: indices against the plain version, device ms."""
+    from isdf_tpu_torch.ops import cuda_bounds as CB
+    pts, surf, sv = x["pts"], x["pc"][:, 0], x["ray_valid"]
+    want = CB.closest_surface_ix_plain(pts, surf, sv)
+    M, R = pts.shape[0], surf.shape[0]
+    for threads, splits, ppt in K4_VARIANTS:
+        g = CB.k4_geometry(M, R, threads, splits, ppt)
+
+        def fn():
+            return CB.closest_surface_ix_cuda(pts, surf, sv, geometry=g)
+
+        same = torch.equal(fn(), want)
+        ms, _ = device_ms(torch, "K4", fn, 50)
+        print(f"K4 variant threads {threads} splits {splits} ppt {ppt}: "
+              f"{g['points']} points a block, {g['blocks']} blocks, fill "
+              f"{g['fill']:.3f}: {ms:.4f} ms on the device, indices equal "
+              f"to the plain version's: {same}", flush=True)
+
+
 def check_k4(torch, s, timed=True):
     from isdf_tpu_torch.ops import bounds as B
     from isdf_tpu_torch.ops import cuda_bounds as CB
     x = s.x
-    sv = x["surf_valid"] > 0.5
-    k_ix = CB.closest_surface_ix(x["pts"], x["surf"], sv)
-    k_again = CB.closest_surface_ix(x["pts"], x["surf"], sv)
-    bias = CB.surface_bias(x["surf"], sv)
-
-    def plain():
-        return CB.closest_surface_ix_plain(x["pts"], x["surf"], bias)
-
-    p_ix = plain()
-    torch.cuda.synchronize()
-    n_diff = int((k_ix != p_ix).sum())
+    for case, pts, surf, sv in k4_cases(torch, x):
+        k_ix = CB.closest_surface_ix(pts, surf, sv)
+        k_again = CB.closest_surface_ix(pts, surf, sv)
+        p_ix = CB.closest_surface_ix_plain(pts, surf, sv)
+        torch.cuda.synchronize()
+        n_diff = int((k_ix != p_ix).sum())
+        same = torch.equal(k_ix, k_again)
+        print(f"K4 [{case}]: M {pts.shape[0]}, R {surf.shape[0]}: indices "
+              f"differing from the plain version: {n_diff}; run-to-run "
+              f"identical: {same}", flush=True)
+        expect(n_diff == 0, f"K4 [{case}]: {n_diff} indices disagree")
+        expect(same, f"K4 [{case}]: two calls gave different bits")
     # the bounds and gradient targets the step builds from the indices
     args = (x["pc"], x["z"], x["depth"], x["ray_valid"])
     kb = B.bounds_pc(*args, use_kernel=True)
     pb = B.bounds_pc(*(a.cpu() for a in args), use_kernel=True)
     b_err = rel_err(kb.bounds.cpu(), pb.bounds)[0]
     g_err = rel_err(kb.grad.cpu(), pb.grad)[0]
-    print(f"K4: indices differing from the plain version: {n_diff} of "
-          f"{k_ix.numel()}; bounds max abs err {b_err:.3e}, gradient "
-          f"targets {g_err:.3e} (tol {TOL_BOUNDS}); run-to-run identical: "
-          f"{torch.equal(k_ix, k_again)}", flush=True)
-    expect(n_diff == 0, f"K4: {n_diff} indices disagree")
+    print(f"K4: bounds max abs err {b_err:.3e}, gradient targets "
+          f"{g_err:.3e} (tol {TOL_BOUNDS})", flush=True)
     expect(b_err <= TOL_BOUNDS and g_err <= TOL_BOUNDS,
            "K4: bounds disagree with the plain version's")
     expect(torch.equal(kb.grad_valid.cpu(), pb.grad_valid),
            "K4: gradient validity disagrees")
-    expect(torch.equal(k_ix, k_again), "K4: two calls gave different bits")
     if not timed:
         return None
+    pts, surf, sv = x["pts"], x["pc"][:, 0], x["ray_valid"]
+    geo = CB.k4_geometry(pts.shape[0], surf.shape[0])
+    print("K4: geometry " + json.dumps(
+        {k: v for k, v in geo.items() if k != "rows"})
+        + f", group 0 scans {geo['rows'][0]}", flush=True)
+    # one call is one launch of k_closest_surface and nothing else
+    names = [n for _, _, n in traced_kernels(
+        torch, lambda: CB.closest_surface_ix(pts, surf, sv), 1)]
+    print(f"K4: device kernels of one call: {names}", flush=True)
+    expect(len(names) == 1 and "k_closest_surface" in names[0],
+           f"K4: one call launched {names}")
+
+    def matmul_route():  # ops/bounds.py's search without use_kernel
+        sc = -2.0 * (pts @ surf.T) + (surf * surf).sum(-1)[None, :]
+        return torch.where(sv[None, :], sc, torch.inf).argmin(dim=-1)
+
+    print(f"K4: yardstick, the port's matmul route (ops/bounds.py, a "
+          f"[M, R] score matrix): {time_ms(torch, matmul_route, 20):.4f} ms "
+          f"(CUDA events)", flush=True)
     return s.row(torch, "K4", 0.0,
-                 lambda: CB.closest_surface_ix(x["pts"], x["surf"], sv),
-                 plain)
+                 lambda: CB.closest_surface_ix(pts, surf, sv),
+                 lambda: CB.closest_surface_ix_plain(pts, surf, sv))
 
 
 def _rf_test_loss(torch, raw, graw):
@@ -784,6 +884,7 @@ def main():
     s = Setup(torch)
     rows = [check(torch, s, name) for name in REPLACES]
     if kernels_only:
+        k4_variants(torch, s.x)
         print(json.dumps({"kernels": rows}))
         return
 

@@ -226,19 +226,62 @@ def test_stream_kernel_matches_plain_on_card():
     assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
 
 
+def _k4_case(kind):
+    """The inputs chip_smoke.py's K4 check holds, at this file's size:
+    the trainer's (surface set the strided view pc[:, 0]), exact ties
+    (every surface point twice, in other groups of the kernel, most also
+    in one group's consecutive runs, and +-pairs on the axes), ragged
+    (M = 5,373, R = 997), one valid surface point, none valid."""
+    x = _inputs("cuda", R=1000)
+    pc = x["pts"].view(1000, 27, 3)
+    surf, sv = pc[:200, 0], x["surf_valid"][:200] > 0.5
+    pts = x["pts"][:5400]
+    if kind == "trainer":
+        return pts, surf, sv
+    if kind == "ties":
+        rng = np.random.default_rng(3)
+        axes = np.array([[2, 0, 0], [-2, 0, 0], [0, 2, 0], [0, -2, 0],
+                         [0, 0, 2], [0, 0, -2]], np.float32)
+        u = rng.normal(size=(6, 8, 3))  # rows r and r + 8 equal too
+        half = np.concatenate([np.concatenate([u, u], 1).reshape(-1, 3)[:94],
+                               axes])
+        on_axes = np.zeros((1000, 3))
+        on_axes[np.arange(1000), rng.integers(0, 3, 1000)] = \
+            rng.integers(-4, 5, 1000) * 0.25
+        p = np.concatenate([on_axes, rng.normal(size=(4000, 3))])
+        valid = np.ones(200, bool)
+        valid[[94, 195]] = False
+        return (torch.as_tensor(p, dtype=torch.float32, device="cuda"),
+                torch.as_tensor(np.concatenate([half, half]),
+                                dtype=torch.float32, device="cuda"),
+                torch.as_tensor(valid, device="cuda"))
+    if kind == "ragged":
+        return (x["pts"][:5373], pc[3:, 0],
+                x["surf_valid"][3:] > 0.5)
+    one = torch.zeros_like(sv)
+    if kind == "one_valid":
+        one[137] = True
+    return pts, surf, one
+
+
 @pytest.mark.cuda
-def test_closest_surface_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("kind", ["trainer", "ties", "ragged", "one_valid",
+                                  "none_valid"])
+def test_closest_surface_kernel_matches_plain_on_card(kind):
+    """One launch a call, the plain version's indices exactly, the same
+    bits in two calls."""
     _need_card()
-    _, _, _, x = _setup("cuda")
-    sv = x["surf_valid"] > 0.5
+    pts, surf, sv = _k4_case(kind)
     n0 = CB.LAUNCHES["K4"]
-    got = CB.closest_surface_ix(x["pts"], x["surf"], sv)
+    got = CB.closest_surface_ix(pts, surf, sv)
     assert CB.LAUNCHES["K4"] == n0 + 1
-    want = CB.closest_surface_ix_plain(x["pts"], x["surf"],
-                                       CB.surface_bias(x["surf"], sv))
+    want = CB.closest_surface_ix_plain(pts, surf, sv)
     assert torch.equal(got, want)
-    none = CB.closest_surface_ix(x["pts"], x["surf"], torch.zeros_like(sv))
-    assert not none.any()  # no valid surface point: index 0, as argmin
+    assert torch.equal(CB.closest_surface_ix(pts, surf, sv), got)
+    if kind == "none_valid":
+        assert not got.any()  # no valid surface point: index 0, as argmin
+    if kind == "one_valid":
+        assert (got == 137).all()
 
 
 def _rf_loss(raw, graw):

@@ -7,7 +7,8 @@ the CPU.
 * K4's plain version against isdf_tpu's closest_surface_ix kernel in
   interpret mode: exact indices, as tests/test_pallas_kernels.py requires
   of that kernel; exactly tied scores and an all-invalid surface set take
-  the first index (0) on both sides.
+  the first index (0) on both sides; a budgeted surface subset and the
+  strided view pc[:, 0] give the same indices.
 * bounds_pc with the kernel flag against isdf_tpu's pallas_mode="interpret":
   atol 1e-5.
 * K1-stream's plain version (models/cuda_mlp.py, pe streamed in) against
@@ -132,20 +133,36 @@ def _surface_case(kind):
         pts = axis * rng.integers(0, 5, (60, 1)).astype(np.float32) * 0.25
         valid = np.ones(12, bool)
         valid[[0, 7]] = False
+    elif kind == "budget":
+        # a budgeted surface set as StepFunctions.surf_set draws it: valid
+        # points first, then at random, 64 of 150 surface samples
+        pc = rng.normal(size=(150, 5, 3)).astype(np.float32) * 1.5
+        ray_valid = rng.random(150) > 0.3
+        sel = np.argsort(-(ray_valid * 2.0 + rng.random(150)),
+                         kind="stable")[:64]
+        pts, surf, valid = pc.reshape(-1, 3), pc[sel, 0], ray_valid[sel]
+    elif kind == "strided":
+        # the trainer's surface set: the strided view pc[:, 0], no copy
+        pc = rng.normal(size=(120, 9, 3)).astype(np.float32) * 1.5
+        valid = rng.random(120) > 0.2
+        surf_t = t(pc)[:, 0]
+        assert not surf_t.is_contiguous()
+        return pc.reshape(-1, 3), pc[:, 0], valid, surf_t
     else:  # no valid surface point: every score +inf
         pts = rng.normal(size=(50, 3)).astype(np.float32)
         surf = rng.normal(size=(9, 3)).astype(np.float32)
         valid = np.zeros(9, bool)
-    return pts, surf, valid
+    return pts, surf, valid, t(surf)
 
 
-@pytest.mark.parametrize("kind", ["random", "ties", "none_valid"])
+@pytest.mark.parametrize("kind", ["random", "ties", "none_valid", "budget",
+                                  "strided"])
 def test_closest_surface_plain_matches_pallas_kernel(kind):
-    pts, surf, valid = _surface_case(kind)
+    pts, surf, valid, surf_t = _surface_case(kind)
     want = np.asarray(closest_surface_ix(jnp.asarray(pts), jnp.asarray(surf),
                                          jnp.asarray(valid), interpret=True))
     before = dict(CB.LAUNCHES)
-    got = CB.closest_surface_ix(t(pts), t(surf), t(valid))
+    got = CB.closest_surface_ix(t(pts), surf_t, t(valid))
     assert CB.LAUNCHES == before  # CPU: the plain version, no launch
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), want)

@@ -5,14 +5,18 @@
     python3 chip_smoke.py --kernels-only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
-  1. build the three kernel libraries from isdf_tpu_torch/csrc with nvcc,
-     one nvcc per source, all started together;
+  1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
+     one nvcc per source, all started together (the *_f32 sources are the
+     MLP kernels' f32-product mode);
   2. hold each kernel against its plain PyTorch version at the trainer's
      shapes (N = 27,000 points, R = 1,000 surface points, full-width random
      weights from a seed, a non-identity scene transform) and time both:
      K1-pc, K1-ray, K1-stream (the fused train op), K4 (nearest surface
-     point), K2 and K3 (the reverse-fused op, forward and backward); each
-     is also called twice on the same inputs and must give the same bits.
+     point), K2 and K3 (the reverse-fused op, forward and backward), then
+     K1-pc, K1-ray, K1-stream, K2 and K3 in their f32-product mode
+     (tpu.mm_precision other than "default") against the plain versions
+     with f32 products; each is also called twice on the same inputs and
+     must give the same bits.
      K4 is held on five inputs (the trainer's, exact ties, ragged M and R,
      one valid surface point, none), must be one launch a call with no
      other device kernel, and is timed beside the port's matmul route for
@@ -24,23 +28,31 @@ Phases (any failure is an uncaught exception and a non-zero exit):
   3. plant one fault per kernel added by the second slice (K1-stream, K4,
      K2, K3), two in K1's staged products (accumulator rows g and g + 8
      swapped in the forward epilogue; k_dw dropping the last slab of each
-     split) and a second in K4 (its merge of the groups preferring the
-     later group on equal minima) in copies of the sources, build the
-     copies, and require each check to fail on its faulty kernel;
+     split), a second in K4 (its merge of the groups preferring the later
+     group on equal minima) and one in the f32 products (the last k-step
+     of each slab dropped) in copies of the sources, build the copies, and
+     require each check to fail on its faulty kernel;
   4. drive the online trainer through its entry points (Trainer +
      train_loop) on isdf_tpu_torch/train/configs/synthetic.json with the
-     simulated clock pinned, 600 steps per path: as shipped (pc bounds ->
-     K1-pc); loss.bounds_method=ray (-> K1-ray); tpu.pe_in_kernel=false
-     with tpu.use_pallas=true (-> K1-stream and K4); tpu.grad_mode=
-     reverse_fused with tpu.use_pallas=true (the non-fused step -> K4).
-     Each run starts with the launch counts at 0, must launch its kernels
-     once per step and no other, lower its loss, promote keyframes and lower
-     the SDF error against the scene's analytic SDF;
+     simulated clock pinned, per path: as shipped (pc bounds -> K1-pc);
+     loss.bounds_method=ray (-> K1-ray); tpu.pe_in_kernel=false with
+     tpu.use_pallas=true (-> K1-stream and K4); tpu.grad_mode=
+     reverse_fused with tpu.use_pallas=true (the non-fused step -> K4);
+     the first three again with tpu.mm_precision=highest (-> the f32
+     mode); model.embedding.gauss_embed=1 (autograd, no kernel). Each run
+     starts with the launch counts at 0, must launch its kernels once per
+     step and no other, lower its loss, promote keyframes, and lower both
+     the reference protocol's av_l1 (eval/protocol.py, visible region)
+     and the SDF error against the scene's analytic SDF over the room;
   5. drive the reverse-fused op's own path (no trainer reaches K2/K3 on one
      card): 200 AdamW steps on 27,000 fixed points, once through K2/K3 and
-     once through the plain op; K2 and K3 launch once per step, both loss
-     curves fall, the first step agrees within the K2/K3 limits;
-  6. print the card, the kernels' JSON line, and the result line.
+     once through the plain op, in both product modes; K2 and K3 launch
+     once per step, both loss curves fall, the first step agrees within
+     the K2/K3 limits;
+  6. run the CLI (train/train.py) on the shipped config: as shipped, its
+     res.json must hold the protocol's "rays" entries; then batch mode with
+     the per-step loop (-ni --per_step);
+  7. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -70,6 +82,13 @@ TOL_LOSS_REL = 3e-6     # K2/K3 op path: the first step's loss
 # AdamW runs drift apart when their bf16 roundings differ (read: 3.3e-2);
 # it holds both runs to the same training outcome (PERF.md, section 6)
 TOL_LAST_REL = 1e-1
+# The f32-product mode against the plain version with f32 products: both
+# sum IEEE f32 products, in another order. About 10x the largest gap read
+# on the card (PERF.md, section 6): sums 8.4e-8, per-point loss 5.3e-7,
+# gradient blocks 2.2e-6, K2 2.7e-6 (max) and 1.4e-6 (norm); the op path's
+# first loss read 0 (limit: a few float32 ulps), its 200th 2.6e-3.
+TOL_F32 = dict(sums=1e-6, ploss=5e-6, grad=2e-5, raw=3e-5, raw_rms=1.5e-5,
+               loss=1e-6, last=3e-2)
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
@@ -77,7 +96,8 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 
 CONFIG = os.path.join(ROOT, "isdf_tpu_torch", "train", "configs",
                       "synthetic.json")
-SOURCES = ("train_mlp", "bounds_pc", "reverse_fused")
+SOURCES = ("train_mlp", "bounds_pc", "reverse_fused", "train_mlp_f32",
+           "reverse_fused_f32")
 REPLACES = {
     "K1-pc": "isdf_tpu/models/pallas_mlp.py:726",
     "K1-ray": "isdf_tpu/models/pallas_mlp.py:685",
@@ -86,6 +106,10 @@ REPLACES = {
     "K3": "isdf_tpu/models/pallas_mlp.py:884",
     "K4": "isdf_tpu/ops/pallas/bounds_pc.py:43",
 }
+# the f32-product mode of the MLP kernels: the same Pallas call sites,
+# built with mm_dtype = float32 (pallas_mlp.py:618-620, 836-838)
+F32 = ("K1-pc-f32", "K1-ray-f32", "K1-stream-f32", "K2-f32", "K3-f32")
+REPLACES.update((k, REPLACES[k[:-4]]) for k in F32)
 # the device kernels each kernel's wrapper launches, as the trace names them
 KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
                 "K1-ray": ("k_train_tile", "k_dw", "k_reduce"),
@@ -93,9 +117,11 @@ KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
                 "K2": ("k_rf_forward",),
                 "K3": ("k_rf_vjp_tile", "k_dw", "k_reduce"),
                 "K4": ("k_closest_surface",)}
+KERNEL_NAMES.update((k, KERNEL_NAMES[k[:-4]]) for k in F32)
 SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
              "K1-stream": "train_mlp", "K4": "bounds_pc",
              "K2": "reverse_fused", "K3": "reverse_fused"}
+SOURCE_OF.update((k, SOURCE_OF[k[:-4]] + "_f32") for k in F32)
 # planted faults, one per kernel of the second slice, two in K1's staged
 # products and a second in K4's group merge: (label, kernel whose check
 # must fail, file, text, faulty)
@@ -121,6 +147,10 @@ PLANTED = (
     ("k_dw last slab", "K1-pc", "mlp_tile.cuh",
      "const int nslab = max(re - rb, 0) / DW_KS;",
      "const int nslab = max(re - rb, 0) / DW_KS - 1;"),
+    # the f32 products drop the last k-step of each slab
+    ("f32 products last k-step", "K1-pc-f32", "mlp_tile.cuh",
+     "for (int k4 = 0; k4 < KS; k4 += 4) {",
+     "for (int k4 = 0; k4 < KS - 4; k4 += 4) {"),
 )
 
 
@@ -149,8 +179,8 @@ def all_launches():
 
 
 def occupancy(lib):
-    """Resident blocks per SM of K1's phases 1 and 2
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """Resident blocks per SM of K1's phases 1 and 2 in one library's
+    product mode (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
     out = (ctypes.c_int * 4)()
     fn = lib.isdf_train_mlp_occupancy
@@ -231,7 +261,9 @@ def flop_count(name, model, N, R):
     chain, 2(nh+1) dW; K2 2(nh+1) forward and v-chain; K3 (nh+1) forward,
     (nh+1) tangent chain, 2(nh-1) backward chain, 2(nh+1) dW. f32: the
     PE build (K1-pc/ray, 7 per lane), the scores (7 per surface point),
-    the tangent contractions and the output head."""
+    the tangent contractions and the output head. In the f32-product mode
+    ("-f32") the first count is f32 operations too."""
+    name = name.removesuffix("-f32")
     nh = model.n_layers - 1
     H = model.hidden_size
     mm = N * 2 * H * H
@@ -249,6 +281,7 @@ def flop_count(name, model, N, R):
 
 def byte_count(name, model, N, R):
     """Each input read once, each output written once."""
+    name = name.removesuffix("-f32")
     L, E = model.n_layers, model.embedding_size
     w = L * 512 * 256 * 4 + L * 256 * 4
     if name == "K4":  # points, surf, valid (one byte each), int64 out
@@ -271,17 +304,21 @@ def stash_bytes(name, model, N):
     (twice in K1); k_dw reads the four operands of each of its nh + 1
     GEMMs once; the split-K partials are written and read once. The
     three-phase design cannot take less than these bytes over the memory
-    rate: its floor, beside the bound of byte_count and flop_count."""
+    rate: its floor, beside the bound of byte_count and flop_count. The
+    operand planes (peb, hb, tb, m0b, dzb, dub) are bf16, or f32 in the
+    f32-product mode."""
     from isdf_tpu_torch.models.cuda_mlp import k1_geometry
-    geo = k1_geometry(N, model.n_layers)
+    f32 = name.endswith("-f32")
+    geo = k1_geometry(N, model.n_layers, f32=f32)
     nh, H = model.n_layers - 1, model.hidden_size
-    write = 4 + 2 + 4 * nh + 2 * (nh - 1) + 4 + 4 * nh + 2 * (nh - 1) + 2 \
-        + 2 * nh + 2 * nh
+    o = 4 if f32 else 2  # bytes of an operand
+    write = 4 + o + 4 * nh + o * (nh - 1) + 4 + 4 * nh + o * (nh - 1) + o \
+        + o * nh + o * nh
     if name.startswith("K1"):
         read = 4 * 3 * nh + 4 * nh + 4 + 4 * 2
     else:
         read = 4 * 2 * nh + 4 * nh + 4 + 4
-    read_dw = 4 * (2 * nh + 2)
+    read_dw = 2 * o * (2 * nh + 2)
     partials = 2 * geo["S"] * (nh + 1) * H * H * 4
     return geo["NP"] * H * (write + read + read_dw) + partials
 
@@ -361,6 +398,7 @@ class Setup:
         self.T = T.cuda()
         self.x = make_inputs(torch)
         self.N, self.R = self.x["pts"].shape[0], self.x["surf"].shape[0]
+        self.model32 = M.SDFModel(mm_precision="highest")
         self.lk = K._loss_knobs(self.model, cfg.loss_type, cfg.trunc_distance,
                                 cfg.trunc_weight, cfg.eik_apply_dist,
                                 cfg.eik_weight, cfg.grad_weight,
@@ -374,7 +412,8 @@ class Setup:
         plain_ms = time_ms(torch, plain, 3)
         fb, ff = flop_count(name, self.model, self.N, self.R)
         nbytes = byte_count(name, self.model, self.N, self.R)
-        t_ops = fb / PEAK_BF16 + ff / PEAK_F32
+        t_ops = ((fb + ff) / PEAK_F32 if name.endswith("-f32")
+                 else fb / PEAK_BF16 + ff / PEAK_F32)
         t_bytes = nbytes / PEAK_BYTES
         bound_ms = 1e3 * max(t_ops, t_bytes)
         print(f"{name}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
@@ -384,7 +423,7 @@ class Setup:
               flush=True)
         print(f"{name}: device ms by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
-        if name.startswith("K1") or name == "K3":
+        if name.startswith(("K1", "K3")):
             sb = stash_bytes(name, self.model, self.N)
             print(f"{name}: design floor {1e3 * sb / PEAK_BYTES:.4f} ms "
                   f"(stash {sb / 1e9:.3f} GB at {PEAK_BYTES / 1e12} TB/s)",
@@ -397,23 +436,34 @@ class Setup:
                     library_ms=None, parts=parts)
 
 
+def tolerances(name):
+    """(sums, ploss, grad) limits of a K1 or K3 check."""
+    if name.endswith("-f32"):
+        return TOL_F32["sums"], TOL_F32["ploss"], TOL_F32["grad"]
+    return TOL_SUMS_REL, TOL_PLOSS, TOL_GRAD
+
+
 def check_k1(torch, s, name, timed=True):
     from isdf_tpu_torch.models import cuda_mlp as K
     from isdf_tpu_torch.models.sdf_mlp import _pe_consts
-    cfg, x, model, params = s.cfg, s.x, s.model, s.params
+    cfg, x, params = s.cfg, s.x, s.params
+    f32 = name.endswith("-f32")
+    model = s.model32 if f32 else s.model
+    base = name.removesuffix("-f32")
+    tol_sums, tol_ploss, tol_grad = tolerances(name)
     op = K.make_train_op(
         model, loss_type=cfg.loss_type, trunc_distance=cfg.trunc_distance,
         trunc_weight=cfg.trunc_weight, eik_apply_dist=cfg.eik_apply_dist,
         eik_weight=cfg.eik_weight, grad_weight=cfg.grad_weight,
-        orien_loss=cfg.orien_loss, pc_bounds=name == "K1-pc",
-        pe_in_kernel=name != "K1-stream")
+        orien_loss=cfg.orien_loss, pc_bounds=base == "K1-pc",
+        pe_in_kernel=base != "K1-stream")
     common = (x["valid"], x["noise"])
-    if name == "K1-pc":
+    if base == "K1-pc":
         args = (params, s.T, x["pts"], x["surf"], x["surf_valid"], x["zd"],
                 x["normals_pt"], x["is_surf"], *common, x["inv_count"])
         kw = dict(surf=x["surf"], surf_valid=x["surf_valid"], zd=x["zd"],
                   normals_pt=x["normals_pt"], is_surf=x["is_surf"])
-    elif name == "K1-ray":
+    elif base == "K1-ray":
         args = (params, s.T, x["pts"], x["bounds"], *common, x["gt"],
                 x["inv_count"])
         kw = dict(bounds=x["bounds"], gt=x["gt"])
@@ -430,7 +480,8 @@ def check_k1(torch, s, name, timed=True):
     def plain():
         return K.train_op_plain(params, model, s.lk, M_, Tc, x["pts"],
                                 x["valid"], x["noise"], x["inv_count"],
-                                mm_dtype=torch.bfloat16, **kw)
+                                mm_dtype=torch.float32 if f32
+                                else torch.bfloat16, **kw)
 
     p_out = plain()
     torch.cuda.synchronize()
@@ -447,15 +498,15 @@ def check_k1(torch, s, name, timed=True):
     norm = {key: rel_err(a, b) for key, (a, b) in errs.items()}
     max_abs = max(v[0] for v in norm.values())
     print(f"{name}: sums kernel {ks.tolist()} plain {ps.tolist()}")
-    print(f"{name}: sums rel err {sums_rel} (tol {TOL_SUMS_REL})")
+    print(f"{name}: sums rel err {sums_rel} (tol {tol_sums})")
     print(f"{name}: max abs err / max abs of the block (tol ploss "
-          f"{TOL_PLOSS}, others {TOL_GRAD}): " + ", ".join(
+          f"{tol_ploss}, others {tol_grad}): " + ", ".join(
               f"{k} {v[1]:.3e}" for k, v in norm.items()))
     print(f"{name}: run-to-run identical: {deterministic}", flush=True)
-    expect(max(sums_rel[:4]) <= TOL_SUMS_REL and sums_rel[4] == 0.0,
+    expect(max(sums_rel[:4]) <= tol_sums and sums_rel[4] == 0.0,
            f"{name}: loss sums disagree with the plain version")
     for key, (d, rel) in norm.items():
-        tol = TOL_PLOSS if key == "ploss" else TOL_GRAD
+        tol = tol_ploss if key == "ploss" else tol_grad
         expect(rel <= tol, f"{name}: {key} disagrees ({rel:.3e} > {tol})")
     expect(deterministic, f"{name}: two calls gave different bits")
     if not timed:
@@ -597,7 +648,10 @@ def check_k2_k3(torch, s, which, timed=True):
     from isdf_tpu_torch.models import cuda_reverse_fused as CRF
     from isdf_tpu_torch.models import cuda_mlp as K
     from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
-    model = s.model
+    f32 = which.endswith("-f32")
+    model = s.model32 if f32 else s.model
+    tol_raw, tol_rms = ((TOL_F32["raw"], TOL_F32["raw_rms"]) if f32
+                        else (TOL_RAW, TOL_RAW_RMS))
     args = (s.pe, s.cos_b, s.dxs, s.dproj2)
     ops = {"kernel": CRF.make_cuda_reverse_fused(model),
            "plain": make_reverse_fused_mlp(model)}
@@ -617,21 +671,21 @@ def check_k2_k3(torch, s, which, timed=True):
     torch.cuda.synchronize()
     k, pl = out["kernel"], out["plain"]
     Tc = K.tangent_rows(model, s.dxs, s.dproj2).contiguous()
-    if which == "K2":
+    if which.startswith("K2"):
         again = CRF.rf_forward_cuda(s.params, model, s.pe, Tc)
         errs = {"raw": rel_err(k["raw"], pl["raw"])}
         errs.update((f"graw{c}", rel_err(k["graw"][:, c], pl["graw"][:, c]))
                     for c in range(3))
         det = same_bits(torch, (k["raw"], k["graw"]), again)
-        tol = TOL_RAW
+        tol = tol_raw
         rms = {"raw": rms_err(k["raw"], pl["raw"])}
         rms.update((f"graw{c}", rms_err(k["graw"][:, c], pl["graw"][:, c]))
                    for c in range(3))
-        print(f"K2: ||kernel - plain|| / ||plain|| (tol {TOL_RAW_RMS}): "
+        print(f"{which}: ||kernel - plain|| / ||plain|| (tol {tol_rms}): "
               + ", ".join(f"{key} {v:.3e}" for key, v in rms.items()))
         for key, v in rms.items():
-            expect(v <= TOL_RAW_RMS, f"K2: {key} disagrees in norm "
-                   f"({v:.3e} > {TOL_RAW_RMS})")
+            expect(v <= tol_rms, f"{which}: {key} disagrees in norm "
+                   f"({v:.3e} > {tol_rms})")
     else:
         again = CRF.rf_backward_cuda(s.params, model, s.pe, Tc, k["draw"],
                                      k["dgraw"])
@@ -646,7 +700,7 @@ def check_k2_k3(torch, s, which, timed=True):
         errs.update((f"{key}|same-cot", rel_err(kb[key], pb[key]))
                     for key in kb)
         det = same_bits(torch, k["grads"], again)
-        tol = TOL_GRAD
+        tol = tolerances(which)[2]
     torch.cuda.synchronize()
     loss_rel = abs(k["loss"].item() - pl["loss"].item()) / abs(
         pl["loss"].item())
@@ -661,7 +715,7 @@ def check_k2_k3(torch, s, which, timed=True):
     if not timed:
         return None
     max_abs = max(v[0] for v in errs.values())
-    if which == "K2":
+    if which.startswith("K2"):
         return s.row(torch, which, max_abs, lambda: CRF.rf_forward_cuda(
             s.params, model, s.pe, Tc), lambda: ops["plain"](s.params, *args))
     p = pl["p"]
@@ -715,18 +769,21 @@ def planted_faults(torch, s):
 
 def run_trainer(torch, overrides, max_steps, sim_dt):
     """One run of the online trainer through its entry points. Returns
-    (summary dict, launch counts of this run)."""
-    from isdf_tpu_torch.engine.loop import train_loop
+    (summary dict, launch counts of this run). Its evals: the reference
+    protocol's entry (eval/protocol.py, "rays", as train_loop makes it)
+    and the SDF error over the room (SyntheticDataset.sdf_mae)."""
+    from isdf_tpu_torch.engine.loop import _timed_eval, train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.utils.config import load_config
 
     cfg = load_config(CONFIG, overrides=overrides)
     trainer = Trainer(cfg, seed=1)
-    assert trainer.device.type == "cuda" and trainer.fns.uses_kernel
+    assert trainer.device.type == "cuda"
     trainer._per_step_device_s = sim_dt
     trainer._bill_exact = True
     trainer.dataset[0]
     mae0 = trainer.dataset.sdf_mae(trainer.sdf_fn)
+    l1_0 = _timed_eval(trainer, None)["rays"]["av_l1"]
     losses = []
     run_steps = trainer.run_steps
 
@@ -736,13 +793,15 @@ def run_trainer(torch, overrides, max_steps, sim_dt):
         return out
 
     trainer.run_steps = recording_run_steps
-    maes, eval_s = [], [0.0]
+    maes, l1s, eval_s = [], [], [0.0]
 
     def hook(tr):
         t = time.perf_counter()
+        entry = _timed_eval(tr, None)
         maes.append(tr.dataset.sdf_mae(tr.sdf_fn))
+        l1s.append(entry["rays"]["av_l1"])
         eval_s[0] += time.perf_counter() - t
-        return {"sdf_mae": maes[-1]}
+        return {**entry, "sdf_mae": maes[-1]}
 
     reset_launches()
     torch.cuda.synchronize()
@@ -756,7 +815,8 @@ def run_trainer(torch, overrides, max_steps, sim_dt):
     summary = dict(steps=res.steps, keyframes=len(res.kf_indices) + 1,
                    frames_seen=int(trainer.frames[-1].frame_id) + 1,
                    loss_first=first, loss_last=last, sdf_mae_before=mae0,
-                   sdf_mae_after=maes[-1], wall_s=wall,
+                   sdf_mae_after=maes[-1], av_l1_before=l1_0,
+                   av_l1_after=l1s[-1], wall_s=wall,
                    eval_s=eval_s[0], steps_per_s_wall=res.steps / wall,
                    steps_per_s_wall_no_eval=res.steps / (wall - eval_s[0]),
                    device_ms_per_step=1e3 * trainer.measured_s
@@ -764,11 +824,11 @@ def run_trainer(torch, overrides, max_steps, sim_dt):
     return summary, launches
 
 
-def rf_op_path(torch, steps=200):
+def rf_op_path(torch, steps=200, f32=False):
     """The reverse-fused op's own path (experiments/profile_step.py::
     mlp_variant): value and gradient of mean |raw| + 0.3 eikonal through
     the op, then AdamW, over fixed points; once through K2/K3, once through
-    the plain op."""
+    the plain op; ``f32``: both in the f32-product mode."""
     from isdf_tpu_torch.models import sdf_mlp as M
     from isdf_tpu_torch.models.cuda_reverse_fused import \
         make_cuda_reverse_fused
@@ -777,7 +837,11 @@ def rf_op_path(torch, steps=200):
     from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
     from isdf_tpu_torch.utils.config import load_config
     cfg = load_config(CONFIG)
-    model = M.SDFModel(mm_precision=cfg.mm_precision)
+    model = M.SDFModel(mm_precision="highest" if f32 else cfg.mm_precision)
+    sfx = "-f32" if f32 else ""
+    tol_loss, tol_grad, tol_last = ((TOL_F32["loss"], TOL_F32["grad"],
+                                     TOL_F32["last"]) if f32 else
+                                    (TOL_LOSS_REL, TOL_GRAD, TOL_LAST_REL))
     N = cfg.window_size * cfg.n_rays * cfg.n_samples_per_ray
     g = torch.Generator(device="cuda").manual_seed(0)
     pts = torch.rand((N, 3), generator=g, device="cuda") * 4.0 - 2.0
@@ -810,14 +874,15 @@ def rf_op_path(torch, steps=200):
         losses = torch.stack(losses).tolist()
         runs[kind] = dict(losses=losses, first=first, launches=launches,
                           ms_per_step=1e3 * wall / steps)
-        print(f"rf op path [{kind}]: loss {losses[0]:.6f} -> "
+        print(f"rf op path{sfx} [{kind}]: loss {losses[0]:.6f} -> "
               f"{losses[-1]:.6f} in {steps} steps, {1e3 * wall / steps:.3f} "
               f"ms per step (host clock); launches {launches}", flush=True)
     k, pl = runs["kernel"], runs["plain"]
-    expect(k["launches"]["K2"] == steps and k["launches"]["K3"] == steps,
+    mine = ("K2" + sfx, "K3" + sfx)
+    expect(all(k["launches"][kk] == steps for kk in mine),
            f"rf op path: K2/K3 launches {k['launches']} in {steps} steps")
-    expect(all(v == 0 for kk, v in k["launches"].items()
-               if kk not in ("K2", "K3")), "rf op path: other kernels ran")
+    expect(all(v == 0 for kk, v in k["launches"].items() if kk not in mine),
+           "rf op path: other kernels ran")
     expect(all(v == 0 for v in pl["launches"].values()),
            "rf op path: the plain run launched a kernel")
     n = 20
@@ -830,25 +895,49 @@ def rf_op_path(torch, steps=200):
     blocks = {key: rel_err(kb[key], pb[key])[1] for key in kb}
     last_rel = abs(k["losses"][-1] - pl["losses"][-1]) / abs(
         pl["losses"][-1])
-    print(f"rf op path: first step loss rel err {loss0_rel:.3e} (tol "
-          f"{TOL_LOSS_REL}), largest gradient block err "
-          f"{max(blocks.values()):.3e} (tol {TOL_GRAD}); last step loss rel "
-          f"err {last_rel:.3e} (tol {TOL_LAST_REL})", flush=True)
-    expect(loss0_rel <= TOL_LOSS_REL, "rf op path: first losses disagree")
+    print(f"rf op path{sfx}: first step loss rel err {loss0_rel:.3e} (tol "
+          f"{tol_loss}), largest gradient block err "
+          f"{max(blocks.values()):.3e} (tol {tol_grad}); last step loss rel "
+          f"err {last_rel:.3e} (tol {tol_last})", flush=True)
+    expect(loss0_rel <= tol_loss, "rf op path: first losses disagree")
     for key, rel in blocks.items():
-        expect(rel <= TOL_GRAD, f"rf op path: first step {key} disagrees "
-               f"({rel:.3e} > {TOL_GRAD})")
-    expect(last_rel <= TOL_LAST_REL, "rf op path: last losses disagree")
+        expect(rel <= tol_grad, f"rf op path: first step {key} disagrees "
+               f"({rel:.3e} > {tol_grad})")
+    expect(last_rel <= tol_last, "rf op path: last losses disagree")
     return k["launches"]
 
 
+def run_cli(torch, args, max_steps, sim_dt):
+    """The trainer CLI in this process, saving to a temporary directory.
+    Returns (LoopResult, res.json, launch counts of the run)."""
+    from isdf_tpu_torch.train.train import main as cli
+    with tempfile.TemporaryDirectory() as d:
+        reset_launches()
+        res = cli(["--config", CONFIG, "--save_path", d, "--max_steps",
+                   str(max_steps), "--sim_dt", str(sim_dt), *args])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        with open(os.path.join(d, "res.json")) as f:
+            saved = json.load(f)
+    return res, saved, launches
+
+
+F32_SET = "tpu.mm_precision=highest"
+# (label, overrides, kernels launched once a step, steps)
 TRAINER_PATHS = (
-    ("K1-pc", None, ("K1-pc",)),
-    ("K1-ray", ["loss.bounds_method=ray"], ("K1-ray",)),
+    ("K1-pc", None, ("K1-pc",), 600),
+    ("K1-ray", ["loss.bounds_method=ray"], ("K1-ray",), 400),
     ("K1-stream+K4", ["tpu.pe_in_kernel=false", "tpu.use_pallas=true"],
-     ("K1-stream", "K4")),
+     ("K1-stream", "K4"), 400),
     ("reverse_fused+K4", ["tpu.grad_mode=reverse_fused",
-                          "tpu.use_pallas=true"], ("K4",)),
+                          "tpu.use_pallas=true"], ("K4",), 400),
+    ("K1-pc-f32", [F32_SET], ("K1-pc-f32",), 600),
+    ("K1-ray-f32", [F32_SET, "loss.bounds_method=ray"], ("K1-ray-f32",),
+     400),
+    ("K1-stream-f32+K4", [F32_SET, "tpu.pe_in_kernel=false",
+                          "tpu.use_pallas=true"], ("K1-stream-f32", "K4"),
+     400),
+    ("gauss_embed", ["model.embedding.gauss_embed=1"], (), 300),
 )
 
 
@@ -876,9 +965,10 @@ def main():
                                         "spill")):
                 print(f"ptxas [{name}]:", line.strip())
 
-    occ = occupancy(nvcc.load("train_mlp"))
-    print("occupancy, resident blocks per SM: " + ", ".join(
-        f"{k} {v}" for k, v in occ.items()), flush=True)
+    for lib in ("train_mlp", "train_mlp_f32"):
+        occ = occupancy(nvcc.load(lib))
+        print(f"occupancy [{lib}], resident blocks per SM: " + ", ".join(
+            f"{k} {v}" for k, v in occ.items()), flush=True)
 
     # ---- phase 2: kernels vs plain versions ----
     s = Setup(torch)
@@ -895,8 +985,8 @@ def main():
 
     # ---- phase 4: the trainer, once per path ----
     by_name = {r["name"]: r for r in rows}
-    for label, overrides, expected in TRAINER_PATHS:
-        summary, launches = run_trainer(torch, overrides, max_steps=600,
+    for label, overrides, expected, steps in TRAINER_PATHS:
+        summary, launches = run_trainer(torch, overrides, max_steps=steps,
                                         sim_dt=1.0 / 300)
         print(f"trainer[{label}]: {json.dumps(summary)}", flush=True)
         print(f"trainer[{label}]: launches {launches}", flush=True)
@@ -912,13 +1002,44 @@ def main():
         assert summary["keyframes"] >= 3, f"{label}: too few keyframes"
         assert summary["sdf_mae_after"] < summary["sdf_mae_before"], \
             f"{label}: the SDF error did not fall"
+        assert summary["av_l1_after"] < summary["av_l1_before"], \
+            f"{label}: the protocol's av_l1 did not fall"
 
-    # ---- phase 5: the reverse-fused op path (K2/K3) ----
-    launches = rf_op_path(torch)
-    by_name["K2"]["launches"] = launches["K2"]
-    by_name["K3"]["launches"] = launches["K3"]
+    # ---- phase 5: the reverse-fused op path (K2/K3), both modes ----
+    for f32 in (False, True):
+        launches = rf_op_path(torch, f32=f32)
+        for name in ("K2", "K3"):
+            name += "-f32" if f32 else ""
+            by_name[name]["launches"] = launches[name]
 
-    # ---- phase 6: report ----
+    # ---- phase 6: the CLI ----
+    res, saved, launches = run_cli(torch, [], 600, 1.0 / 300)
+    entries = list(saved["sdf_eval"].values())
+    print(f"cli [shipped config]: {res.steps} steps, launches {launches}, "
+          f"res.json sdf_eval {json.dumps(saved['sdf_eval'])}", flush=True)
+    assert launches["K1-pc"] == res.steps, "cli: K1-pc not once a step"
+
+    def protocol_entries(entries):
+        return len(entries) >= 2 and all(
+            set(e["rays"]) == {"av_l1", "binned_l1", "l1_chomp_costs"}
+            and len(e["rays"]["binned_l1"]) == 6
+            and len(e["rays"]["l1_chomp_costs"]) == 3
+            and 0.0 < e["rays"]["av_l1"] < 10.0 for e in entries)
+
+    assert protocol_entries(entries), \
+        "cli: res.json lacks the protocol's rays entries"
+    res, saved, launches = run_cli(
+        torch, ["-ni", "--per_step", "--set", "dataset.n_views=20"], 600,
+        1.0 / 300)
+    entries = list(saved["sdf_eval"].values())
+    print(f"cli [-ni --per_step]: {res.steps} steps in {res.rounds} rounds, "
+          f"launches {launches}, av_l1 "
+          f"{[e['rays']['av_l1'] for e in entries]}", flush=True)
+    assert res.rounds == res.steps == 600 and launches["K1-pc"] == 600
+    assert len(res.kf_indices) + 1 == 20, "cli -ni: not the 20 views"
+    assert protocol_entries(entries), "cli -ni: no protocol entries"
+
+    # ---- phase 7: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

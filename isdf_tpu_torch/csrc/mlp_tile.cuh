@@ -38,6 +38,19 @@
 // of tensor-core work.
 // Next step: wgmma fed by TMA rings on the staged operands.
 //
+// The f32-product mode (MLP_F32 = 1, set by the *_f32.cu sources; the
+// port's tpu.mm_precision other than "default", isdf_tpu's mm_dtype =
+// float32): the same stages with every hidden product in IEEE f32 on the
+// CUDA cores. The activation tile, the weight ring, the weights and the
+// dW operands are f32 (op_t); each thread keeps the outputs it owns in the
+// mma.sync fragment (rows g and g + 8 of each m16 tile, columns 2q and
+// 2q + 1 of each n8 tile) and sums them by fmaf in k order, so every
+// epilogue is the one of the bf16 mode. X and X2 (133 KB) and the ring
+// (80 KB) leave one block per SM; k_dw keeps two ring stages. Bound: the
+// operations, ~160 GFLOP a K1 call at 27,000 points, ~2.4 ms at 67
+// TFLOP/s. Neither TF32 nor split-bf16 products: they fall short of the
+// f32 products isdf_tpu asks for with Precision.HIGHEST.
+//
 // No atomics anywhere: every result is the same on every run.
 
 #pragma once
@@ -51,11 +64,27 @@
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
+#ifndef MLP_F32
+#define MLP_F32 0
+#endif
+
+#if MLP_F32
+typedef float op_t;  // operands of the hidden products
+#define LDX 260      // activation tile row stride (elements)
+#define DW_NSTAGE 2  // k_dw ring stages
+#define MIN_BLOCKS 1 // resident blocks per SM the launch bounds ask for
+#else
+typedef bf16 op_t;
+#define LDX 264
+#define DW_NSTAGE 3
+#define MIN_BLOCKS 2
+#endif
+#define CHUNK (16 / (int)sizeof(op_t))  // elements of one 16-byte cp.async
+
 #define HID 256
 #define CATW 512
 #define TM 64
 #define NTHR 256
-#define LDX 264    // bf16 activation tile row stride (elements)
 #define LDO 260    // f32 row-reduction tile row stride (elements)
 #define KS 32      // weight rows (k) per ring stage
 #define NSTAGE 2   // ring stages
@@ -68,7 +97,6 @@ typedef __nv_bfloat162 bf162;
 #define DW_T 128
 #define DW_KS 32
 #define DW_LD 136
-#define DW_NSTAGE 3
 #define DW_STAGE_ELEMS (4 * DW_KS * DW_LD)
 
 struct Args {
@@ -80,12 +108,12 @@ struct Args {
   // constants: Mc [4, 256] PE plane, Tc [3, 256] tangent rows,
   // b [L, 256] biases (b[L-1][0] = output bias), w_out [256], inv_count [1]
   const float *Mc, *Tc, *b, *w_out, *inv_count;
-  const bf16 *W;  // [L, 512, 256]
+  const op_t *W;  // [L, 512, 256]
   // outputs
   float *ploss, *sums, *dW, *db;
   // scratch
   float *pe32, *sig, *u, *h5;
-  bf16 *peb, *m0b, *hb, *tb, *dzb, *dub;
+  op_t *peb, *m0b, *hb, *tb, *dzb, *dub;
   float *part_scal, *part_db, *part_dwout, *part_dw;
   // streamed pe [N, E]; reverse-fused outputs raw [N], graw [N, 3] and
   // cotangents draw [N], dgraw [N, 3]
@@ -118,10 +146,10 @@ static inline Args args_from(const long long *ptrs, const float *knobs,
 }
 
 static const int SMEM_DYN =
-    (2 * TM * LDX + NSTAGE * STAGE_ELEMS) * (int)sizeof(bf16);
-static const int SMEM_DW = DW_NSTAGE * DW_STAGE_ELEMS * (int)sizeof(bf16);
+    (2 * TM * LDX + NSTAGE * STAGE_ELEMS) * (int)sizeof(op_t);
+static const int SMEM_DW = DW_NSTAGE * DW_STAGE_ELEMS * (int)sizeof(op_t);
 static_assert(KS * LDX <= STAGE_ELEMS, "a plain slab fits a stage");
-static_assert(TM * LDO * sizeof(float) <= 2 * TM * LDX * sizeof(bf16),
+static_assert(TM * LDO * sizeof(float) <= 2 * TM * LDX * sizeof(op_t),
               "the f32 tile fits in X and X2");
 
 // ---- PTX: cp.async, ldmatrix, mma.sync ----
@@ -179,8 +207,37 @@ __device__ __forceinline__ float2 ld_f2(const float *p) {
   return *reinterpret_cast<const float2 *>(p);
 }
 
-__device__ __forceinline__ void st_b2(bf16 *p, float x, float y) {
+__device__ __forceinline__ void st_o2(bf16 *p, float x, float y) {
   *reinterpret_cast<bf162 *>(p) = __floats2bfloat162_rn(x, y);
+}
+
+__device__ __forceinline__ void st_o2(float *p, float x, float y) {
+  st_f2(p, x, y);
+}
+
+// A product operand from an f32 value: rounded to bf16, or kept.
+__device__ __forceinline__ op_t to_op(float x) {
+#if MLP_F32
+  return x;
+#else
+  return __float2bfloat16(x);
+#endif
+}
+
+// acc[jn][2h + e] += x[k] * b[jn][e][k] for k = 0..3 in order, IEEE f32.
+__device__ __forceinline__ void fma_k4(float (&acc)[4][4], int h, float4 x,
+                                       const float (&b)[4][2][4]) {
+#pragma unroll
+  for (int jn = 0; jn < 4; jn++)
+#pragma unroll
+    for (int e = 0; e < 2; e++) {
+      float c = acc[jn][2 * h + e];
+      c = fmaf(x.x, b[jn][e][0], c);
+      c = fmaf(x.y, b[jn][e][1], c);
+      c = fmaf(x.z, b[jn][e][2], c);
+      c = fmaf(x.w, b[jn][e][3], c);
+      acc[jn][2 * h + e] = c;
+    }
 }
 
 __device__ __forceinline__ void sig_sp(float z, float &sig, float &h) {
@@ -208,14 +265,14 @@ __device__ __forceinline__ float cb_at(const float *pe_row, int j, int E,
 // The block's shared tiles and coordinates. F, the f32 tile of the row
 // reductions, aliases X and X2.
 struct Tile {
-  bf16 *X, *X2, *ring;
+  op_t *X, *X2, *ring;
   float *F;
   int tid, warp, lane, g, q, n0, tile, r0;
 };
 
 __device__ __forceinline__ Tile tile_of(unsigned char *smem) {
   Tile t;
-  t.X = reinterpret_cast<bf16 *>(smem);
+  t.X = reinterpret_cast<op_t *>(smem);
   t.X2 = t.X + TM * LDX;
   t.ring = t.X2 + TM * LDX;
   t.F = reinterpret_cast<float *>(smem);
@@ -243,7 +300,7 @@ __device__ __forceinline__ void acc_zero(float (&acc)[MT][4][4]) {
 // The weights of one product: segment 0 is W0, segment 1 (nseg == 2) W1;
 // each is a 256x256 block of row stride 256.
 struct Prod {
-  const bf16 *W0, *W1;
+  const op_t *W0, *W1;
   int nseg;
 };
 
@@ -253,17 +310,19 @@ template <bool TRANS>
 __device__ __forceinline__ void ring_issue(const Prod &p, int s, const Tile &t) {
   const int SPS = HID / KS;  // slabs per segment
   if (s < p.nseg * SPS) {
-    const bf16 *W = s < SPS ? p.W0 : p.W1;
+    const op_t *W = s < SPS ? p.W0 : p.W1;
     const int k0 = (s % SPS) * KS;
-    bf16 *dst = t.ring + (s % NSTAGE) * STAGE_ELEMS;
+    op_t *dst = t.ring + (s % NSTAGE) * STAGE_ELEMS;
 #pragma unroll
-    for (int c = t.tid; c < HID * KS / 8; c += NTHR) {
-      if (TRANS) {  // KS / 8 chunks of 16 bytes a row
-        const int n = c / (KS / 8), h = c % (KS / 8);
-        cp_async16(dst + n * LDT + h * 8, W + (size_t)n * HID + k0 + h * 8);
-      } else {      // 32 chunks a row
-        const int k = c >> 5, h = c & 31;
-        cp_async16(dst + k * LDX + h * 8, W + (size_t)(k0 + k) * HID + h * 8);
+    for (int c = t.tid; c < HID * KS / CHUNK; c += NTHR) {
+      if (TRANS) {  // KS / CHUNK chunks of 16 bytes a row
+        const int n = c / (KS / CHUNK), h = c % (KS / CHUNK);
+        cp_async16(dst + n * LDT + h * CHUNK,
+                   W + (size_t)n * HID + k0 + h * CHUNK);
+      } else {      // HID / CHUNK chunks a row
+        const int k = c / (HID / CHUNK), h = c % (HID / CHUNK);
+        cp_async16(dst + k * LDX + h * CHUNK,
+                   W + (size_t)(k0 + k) * HID + h * CHUNK);
       }
     }
   }
@@ -291,7 +350,7 @@ __device__ __forceinline__ void ring_prime(const Prod &p, const Tile &t) {
 template <bool TRANS, int MT, bool DUAL>
 __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
                                           float (&acc2)[MT][4][4],
-                                          const bf16 *X0, const bf16 *X1,
+                                          const op_t *X0, const op_t *X1,
                                           const Prod &p, int m0row,
                                           const Tile &t) {
   const int SPS = HID / KS;
@@ -301,9 +360,46 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
     cp_async_wait<NSTAGE - 2>();  // slab s has landed for this thread
     __syncthreads();              // ... for all; slab s - 1's stage is free
     ring_issue<TRANS>(p, s + NSTAGE - 1, t);
-    const bf16 *S = t.ring + (s % NSTAGE) * STAGE_ELEMS;
+    const op_t *S = t.ring + (s % NSTAGE) * STAGE_ELEMS;
     const int kk = (s % SPS) * KS;
-    const bf16 *XA = (!DUAL && s >= SPS) ? X1 : X0;
+    const op_t *XA = (!DUAL && s >= SPS) ? X1 : X0;
+#if MLP_F32
+    // IEEE f32 products: four k a step, B(W) for the thread's 8 columns
+    // from the slab, then each of its 2 MT rows of X as one float4
+    (void)lane;
+#pragma unroll 2
+    for (int k4 = 0; k4 < KS; k4 += 4) {
+      float b[4][2][4];
+#pragma unroll
+      for (int jn = 0; jn < 4; jn++) {
+        const int c = t.n0 + 8 * jn + 2 * t.q;
+        if (TRANS) {
+#pragma unroll
+          for (int e = 0; e < 2; e++) {
+            const float4 v =
+                *reinterpret_cast<const float4 *>(S + (c + e) * LDT + k4);
+            b[jn][e][0] = v.x; b[jn][e][1] = v.y;
+            b[jn][e][2] = v.z; b[jn][e][3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; k++) {
+            const float2 v = ld_f2(S + (k4 + k) * LDX + c);
+            b[jn][0][k] = v.x; b[jn][1][k] = v.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; i++)
+#pragma unroll
+        for (int h = 0; h < 2; h++) {
+          const int ar = (m0row + 16 * i + t.g + 8 * h) * LDX + kk + k4;
+          fma_k4(acc[i], h, *reinterpret_cast<const float4 *>(XA + ar), b);
+          if (DUAL)
+            fma_k4(acc2[i], h, *reinterpret_cast<const float4 *>(X1 + ar), b);
+        }
+    }
+#else
 #pragma unroll
     for (int k16 = 0; k16 < KS; k16 += 16) {
       uint32_t b[4][2];
@@ -335,6 +431,7 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
         }
       }
     }
+#endif
   }
   cp_async_wait<0>();
 }
@@ -344,7 +441,7 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
 // (transposed; layer 0 adds the skip layer's pe rows through X2) and the
 // backward chain's layer l (transposed, main rows only).
 __device__ __forceinline__ Prod prod_fwd(const Args &a, int l) {
-  const bf16 *Wl = a.W + (size_t)l * CATW * HID;
+  const op_t *Wl = a.W + (size_t)l * CATW * HID;
   return Prod{Wl, Wl + HID * HID, l == a.cat ? 2 : 1};
 }
 
@@ -359,7 +456,7 @@ __device__ __forceinline__ Prod prod_back(const Args &a, int l) {
 }
 
 // pe tile from the streamed plane pe_in [N, E] (zero past row N and column
-// E) into pe32 (f32 scratch), peb (bf16 dW operand, when given), X and X2.
+// E) into pe32 (f32 scratch), peb (op_t dW operand, when given), X and X2.
 __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
   const int j = t.tid;
   for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
@@ -374,7 +471,7 @@ __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
       const int r = rb + k;
       const size_t o = (size_t)(t.r0 + r) * HID + j;
       a.pe32[o] = pe[k];
-      const bf16 pb = __float2bfloat16(pe[k]);
+      const op_t pb = to_op(pe[k]);
       if (a.peb) a.peb[o] = pb;
       t.X[r * LDX + j] = pb;
       t.X2[r * LDX + j] = pb;
@@ -383,8 +480,8 @@ __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
   __syncthreads();
 }
 
-// Forward values. X and X2 hold the bf16 pe tile. Stashes sig per layer;
-// with keep, also the bf16 inputs of layers 1.. (hb) and the last h in f32
+// Forward values. X and X2 hold the op_t pe tile. Stashes sig per layer;
+// with keep, also the op_t inputs of layers 1.. (hb) and the last h in f32
 // (h5) for the parameter VJP. Leaves the last h (f32) in F, and primes the
 // ring with the next stage's first product: the v-chain's (then_vchain)
 // or the tangent chain's.
@@ -420,8 +517,8 @@ __device__ __forceinline__ void tile_forward(const Args &a, const Tile &t,
           sig_sp(acc[i][jn][2 * h + 1] + bias[jn].y, s1, h1);
           st_f2(a.sig + l * plane + o, s0, s1);
           if (!last) {
-            st_b2(t.X + r * LDX + c, h0, h1);
-            if (keep) st_b2(a.hb + l * plane + o, h0, h1);
+            st_o2(t.X + r * LDX + c, h0, h1);
+            if (keep) st_o2(a.hb + l * plane + o, h0, h1);
           } else {
             st_f2(t.F + r * LDO + c, h0, h1);
             if (keep) st_f2(a.h5 + o, h0, h1);
@@ -466,7 +563,7 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
 #pragma unroll
       for (int k = 0; k < ROWS_IN_FLIGHT; k++) {
         const int r = rb + k;
-        bf16 vs = __float2bfloat16(wj * sv[k]);
+        const op_t vs = to_op(wj * sv[k]);
         t.X[r * LDX + j] = vs;
         if (nh - 1 == a.cat) t.X2[r * LDX + j] = vs;
       }
@@ -500,9 +597,9 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
           const int c = t.n0 + 8 * jn + 2 * t.q;
           const float v0 = acc[i][jn][2 * h], v1 = acc[i][jn][2 * h + 1];
           if (l > 0) {
-            st_b2(t.X + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
+            st_o2(t.X + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
             if (l - 1 == a.cat)
-              st_b2(t.X2 + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
+              st_o2(t.X2 + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
           } else {
             st_f2(t.F + r * LDO + c, v0, v1);
           }
@@ -561,7 +658,7 @@ __device__ __forceinline__ float sum_over_g(float v) {
 // Parameter VJP of one tile from the cotangents of raw (draw) and of the
 // spatial gradient (dg0..2), after tile_forward(keep = true), the tangent
 // chain's first product primed in the ring: writes the
-// bf16 operands of the dW products (m0b, tb, dzb, dub), the f32 partials of
+// op_t operands of the dW products (m0b, tb, dzb, dub), the f32 partials of
 // the biases and of the output layer. Phases 2 and 3 finish dW and db.
 __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
                                                const float *draw,
@@ -586,7 +683,7 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
         size_t o = (size_t)(t.r0 + r) * HID + j;
         float dgT = dg0[r] * t0 + dg1[r] * t1 + dg2[r] * t2;
         float m0 = j < 3 ? dgT : cb[k] * dgT;
-        bf16 mb = __float2bfloat16(m0);
+        const op_t mb = to_op(m0);
         a.m0b[o] = mb;
         t.X[r * LDX + j] = mb;
         t.X2[r * LDX + j] = mb;
@@ -627,8 +724,8 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
             st_f2(a.u + l * plane + o, u0, u1);
             const float tv0 = u0 * sv[h][jn].x, tv1 = u1 * sv[h][jn].y;
             if (!last) {
-              st_b2(t.X + r * LDX + c, tv0, tv1);
-              st_b2(a.tb + l * plane + o, tv0, tv1);
+              st_o2(t.X + r * LDX + c, tv0, tv1);
+              st_o2(a.tb + l * plane + o, tv0, tv1);
             } else {
               st[jn][0] += tv0;
               st[jn][1] += tv1;
@@ -686,7 +783,7 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
         float du = dt * s;
         float dz = dh * s + (dt * u) * sigp;
         dbs += dz;
-        bf16 zb = __float2bfloat16(dz), ub = __float2bfloat16(du);
+        const op_t zb = to_op(dz), ub = to_op(du);
         a.dzb[l * plane + o] = zb;
         a.dub[l * plane + o] = ub;
         t.X[r * LDX + j] = zb;
@@ -739,10 +836,10 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
               dz[e] = dhv * s + (dtv * u) * sigp;
               dbs[jn][e] += dz[e];
             }
-            st_b2(a.dzb + lo * plane + o, dz[0], dz[1]);
-            st_b2(a.dub + lo * plane + o, du[0], du[1]);
-            st_b2(t.X + r * LDX + c, dz[0], dz[1]);
-            st_b2(t.X2 + r * LDX + c, du[0], du[1]);
+            st_o2(a.dzb + lo * plane + o, dz[0], dz[1]);
+            st_o2(a.dub + lo * plane + o, du[0], du[1]);
+            st_o2(t.X + r * LDX + c, dz[0], dz[1]);
+            st_o2(t.X2 + r * LDX + c, du[0], du[1]);
           }
         }
     }
@@ -766,16 +863,16 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
 // (128 columns each) come in by cp.async through a DW_NSTAGE ring; the
 // A-side fragments by ldmatrix.trans (A is stored [row][i]), the B side
 // by ldmatrix.trans ([row][j] is k-major).
-static __global__ void __launch_bounds__(NTHR, 2) k_dw(Args a) {
+static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
   extern __shared__ __align__(128) unsigned char smem_dw[];
-  bf16 *ring = reinterpret_cast<bf16 *>(smem_dw);
+  op_t *ring = reinterpret_cast<op_t *>(smem_dw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.y, s = blockIdx.z, nh = a.L - 1;
   const int ib = (blockIdx.x >> 1) * DW_T, jb = (blockIdx.x & 1) * DW_T;
   const int wi = (warp >> 2) * 64, wj = (warp & 3) * 32;
   const size_t plane = (size_t)a.NP * HID;
   const int l = g < nh ? g : a.cat;
-  const bf16 *ops[4];
+  const op_t *ops[4];
   ops[0] = (g == nh || l == 0) ? a.peb : a.hb + (l - 1) * plane;   // A
   ops[1] = (g == nh || l == 0) ? a.m0b : a.tb + (l - 1) * plane;   // TA
   ops[2] = a.dzb + l * plane;                                      // DZ
@@ -785,20 +882,22 @@ static __global__ void __launch_bounds__(NTHR, 2) k_dw(Args a) {
 
   auto issue = [&](int k) {
     if (k < nslab) {
-      bf16 *dst = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
+      op_t *dst = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
       const size_t row0 = (size_t)rb + k * DW_KS;
 #pragma unroll
       for (int op = 0; op < 4; op++)
 #pragma unroll
-        for (int c = tid; c < DW_KS * (DW_T / 8); c += NTHR) {
-          const int r = c / (DW_T / 8), h = c % (DW_T / 8);
-          cp_async16(dst + (op * DW_KS + r) * DW_LD + h * 8,
-                     ops[op] + (row0 + r) * HID + (op < 2 ? ib : jb) + h * 8);
+        for (int c = tid; c < DW_KS * (DW_T / CHUNK); c += NTHR) {
+          const int r = c / (DW_T / CHUNK), h = c % (DW_T / CHUNK);
+          cp_async16(dst + (op * DW_KS + r) * DW_LD + h * CHUNK,
+                     ops[op] + (row0 + r) * HID + (op < 2 ? ib : jb) +
+                         h * CHUNK);
         }
     }
     cp_async_commit();
   };
 
+  const int gq = lane >> 2, q = lane & 3;
   float acc[4][4][4];
   acc_zero(acc);
 #pragma unroll
@@ -807,13 +906,39 @@ static __global__ void __launch_bounds__(NTHR, 2) k_dw(Args a) {
     cp_async_wait<DW_NSTAGE - 2>();
     __syncthreads();
     issue(k + DW_NSTAGE - 1);
-    const bf16 *S = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
+    const op_t *S = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
+#if MLP_F32
+    // IEEE f32: row by row of the slab, A (or TA) at the thread's rows of
+    // dW, DZ (or DU) at its column pairs
+#pragma unroll 4
+    for (int r = 0; r < DW_KS; r++)
+#pragma unroll
+      for (int p = 0; p < 2; p++) {
+        const float *SA = S + (p * DW_KS + r) * DW_LD + wi + gq;
+        const float *SB = S + ((2 + p) * DW_KS + r) * DW_LD + wj + 2 * q;
+        float2 bv[4];
+#pragma unroll
+        for (int jn = 0; jn < 4; jn++) bv[jn] = ld_f2(SB + 8 * jn);
+#pragma unroll
+        for (int i = 0; i < 4; i++)
+#pragma unroll
+          for (int h = 0; h < 2; h++) {
+            const float av = SA[16 * i + 8 * h];
+#pragma unroll
+            for (int jn = 0; jn < 4; jn++) {
+              acc[i][jn][2 * h] = fmaf(av, bv[jn].x, acc[i][jn][2 * h]);
+              acc[i][jn][2 * h + 1] =
+                  fmaf(av, bv[jn].y, acc[i][jn][2 * h + 1]);
+            }
+          }
+      }
+#else
 #pragma unroll
     for (int k16 = 0; k16 < DW_KS; k16 += 16)
 #pragma unroll
       for (int p = 0; p < 2; p++) {
-        const bf16 *SA = S + p * DW_KS * DW_LD;        // A or TA
-        const bf16 *SB = S + (2 + p) * DW_KS * DW_LD;  // DZ or DU
+        const op_t *SA = S + p * DW_KS * DW_LD;        // A or TA
+        const op_t *SB = S + (2 + p) * DW_KS * DW_LD;  // DZ or DU
         uint32_t b[4][2];
 #pragma unroll
         for (int pp = 0; pp < 2; pp++) {
@@ -832,10 +957,10 @@ static __global__ void __launch_bounds__(NTHR, 2) k_dw(Args a) {
           for (int jn = 0; jn < 4; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
         }
       }
+#endif
   }
   cp_async_wait<0>();
   float *out = a.part_dw + ((size_t)s * (nh + 1) + g) * HID * HID;
-  const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int i = 0; i < 4; i++)
 #pragma unroll
@@ -909,7 +1034,7 @@ static __global__ void k_reduce(Args a, int n_tiles) {
 }
 
 // Lets a kernel take more than 48 KB of dynamic shared memory and asks for
-// the largest shared-memory carveout, so that two blocks fit an SM.
+// the largest shared-memory carveout, so that MIN_BLOCKS blocks fit an SM.
 template <class K>
 static inline void allow_smem(K kernel, int bytes) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -40,11 +40,14 @@
 //    same bits.
 //  * The combined tangent is built per tile from the pe row (cb_at) and the
 //    tangent rows Tc, as kernel B does with its lane rolls.
+//  * reverse_fused_f32.cu builds this file in the f32-product mode of
+//    mlp_tile.cuh (MLP_F32): isdf_tpu's mm_dtype = float32 variant.
 
 #include "mlp_tile.cuh"
 
 // K2: raw [N] and graw [N, 3] of the points of one 64-row tile.
-__global__ void __launch_bounds__(NTHR, 2) k_rf_forward(Args a) {
+static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
+    k_rf_forward(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
   __shared__ float raw[TM], g0[TM], g1[TM], g2[TM];
@@ -67,7 +70,8 @@ __global__ void __launch_bounds__(NTHR, 2) k_rf_forward(Args a) {
 
 // K3, phase 1: the parameter VJP of one tile from the cotangents of raw
 // (draw [N]) and graw (dgraw [N, 3]).
-__global__ void __launch_bounds__(NTHR, 2) k_rf_vjp_tile(Args a) {
+static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
+    k_rf_vjp_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
   __shared__ float draw[TM], dg0[TM], dg1[TM], dg2[TM];

@@ -59,7 +59,9 @@
 //    stash floor.
 //
 // The per-tile stages and phases 2-3 live in mlp_tile.cuh, shared with the
-// reverse-fused op (reverse_fused.cu).
+// reverse-fused op (reverse_fused.cu). train_mlp_f32.cu builds this file
+// in the f32-product mode of mlp_tile.cuh (MLP_F32), isdf_tpu's
+// mm_dtype = float32 variant of the same kernel.
 
 #include "mlp_tile.cuh"
 
@@ -67,10 +69,11 @@ enum { MODE_PC = 0, MODE_RAY = 1, MODE_STREAM = 2 };
 
 // Phase 1: one block per 64-row tile.
 template <int MODE>
-__global__ void __launch_bounds__(NTHR, 2) k_train_tile(Args a) {
+static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
+    k_train_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
-  bf16 *X = t.X, *X2 = t.X2;
+  op_t *X = t.X, *X2 = t.X2;
 
   __shared__ float px[TM], py[TM], pz[TM], bcol[TM], gt0[TM], gt1[TM],
       gt2[TM], vcol[TM], nz[TM], raw[TM], g0[TM], g1[TM], g2[TM], draw[TM],
@@ -117,7 +120,7 @@ __global__ void __launch_bounds__(NTHR, 2) k_train_tile(Args a) {
                                 : 0.f);
       size_t o = (size_t)(r0 + r) * HID + j;
       a.pe32[o] = pe;
-      bf16 pb = __float2bfloat16(pe);
+      const op_t pb = to_op(pe);
       a.peb[o] = pb;
       X[r * LDX + j] = pb;
       X2[r * LDX + j] = pb;
@@ -135,7 +138,7 @@ __global__ void __launch_bounds__(NTHR, 2) k_train_tile(Args a) {
     // chunk is a multiple of 4, so each thread still scans its indices in
     // increasing order
     float4 *spq = reinterpret_cast<float4 *>(t.ring);
-    const int SP_CHUNK = NSTAGE * STAGE_ELEMS * (int)sizeof(bf16) / 16;
+    const int SP_CHUNK = NSTAGE * STAGE_ELEMS * (int)sizeof(op_t) / 16;
     for (int c0 = 0; c0 < a.R; c0 += SP_CHUNK) {
       const int n = min(SP_CHUNK, a.R - c0);
       __syncthreads();

@@ -57,6 +57,23 @@ class SyntheticScene:
     def sdf_np(self, p):
         return self.sdf(torch.as_tensor(np.asarray(p, np.float32))).numpy()
 
+    def gt_sdf_grid(self, dim: int = 64, pad: float = 0.0):
+        """A regular GT grid [dim, dim, dim] over the room (+ pad) and its
+        voxel -> world transform, like the reference's 1 cm GT npy and
+        transform.txt pair (reference trainer.py:446-453)."""
+        half = self.extents / 2.0 + pad
+        lo = self.center - half
+        hi = self.center + half
+        axes = [np.linspace(lo[i], hi[i], dim, dtype=np.float32)
+                for i in range(3)]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        sdf = self.sdf_np(pts.reshape(-1, 3)).reshape(dim, dim, dim)
+        transform = np.eye(4, dtype=np.float32)
+        for i in range(3):
+            transform[i, i] = (hi[i] - lo[i]) / (dim - 1)
+        transform[:3, 3] = lo
+        return sdf, transform
+
     @torch.no_grad()
     def render_depth(self, T_WC, dirs_C, max_depth: float = 12.0):
         """Sphere-traced z-depth for rays dirs_C [..., 3] (z convention);
@@ -98,12 +115,20 @@ class SyntheticDataset:
     """Reference-format dataset over a SyntheticScene: frames on an orbit
     inside the room, looking inward-and-around, fps-timed like a
     ReplicaCAD trajectory. Samples are {"image" uint8 HxWx3, "depth"
-    float32 HxW, "T" 4x4}. Reported-pose noise is not ported."""
+    float32 HxW, "T" 4x4}.
+
+    pose_noise_std > 0 reports each pose perturbed by a random SE(3)
+    twist (std in rad and m; numpy draws from seed + 1234) while the depth
+    is rendered from, and reported in "T_gt" as, the true pose: "iid"
+    draws each frame's twist apart, "walk" accumulates the draws (tracker
+    drift; isdf_tpu/data/synthetic.py:152-238)."""
 
     def __init__(self, scene: SyntheticScene, n_frames: int = 300,
                  H: int = 64, W: int = 96, hfov_deg: float = 70.0,
                  orbit_radius: float = 1.4, cam_height: float = 0.0,
-                 max_depth: float = 12.0, device="cpu"):
+                 max_depth: float = 12.0, seed: int = 0,
+                 pose_noise_std: float = 0.0, pose_noise_mode: str = "iid",
+                 device="cpu"):
         self.scene = scene
         self.n_frames = n_frames
         self.H, self.W = H, W
@@ -128,6 +153,19 @@ class SyntheticDataset:
             T[:3, :3] = R
             T[:3, 3] = t
             self.poses.append(T)
+        self.pose_noise_std = float(pose_noise_std)
+        self.noisy_poses = None
+        if self.pose_noise_std > 0:
+            rng = np.random.default_rng(seed + 1234)
+            tw = rng.normal(0.0, self.pose_noise_std,
+                            (n_frames, 6)).astype(np.float32)
+            if pose_noise_mode == "walk":
+                tw = np.cumsum(tw, axis=0)
+            elif pose_noise_mode != "iid":
+                raise ValueError(f"pose_noise_mode {pose_noise_mode!r}")
+            pert = G.exp_se3(torch.from_numpy(tw)).numpy()
+            self.noisy_poses = [pert[i] @ self.poses[i]
+                                for i in range(n_frames)]
         self._cache = {}
 
     def __len__(self):
@@ -145,8 +183,12 @@ class SyntheticDataset:
                 torch.as_tensor(T, device=self.device), self._dirs_C,
                 self.max_depth).cpu().numpy()
             image = np.full((self.H, self.W, 3), 128, np.uint8)
-            self._cache[idx] = {"image": image,
-                                "depth": depth.astype(np.float32), "T": T}
+            sample = {"image": image, "depth": depth.astype(np.float32),
+                      "T": T}
+            if self.noisy_poses is not None:
+                sample["T"] = self.noisy_poses[idx]
+                sample["T_gt"] = T
+            self._cache[idx] = sample
         return self._cache[idx]
 
     def scene_bounds(self):
@@ -157,8 +199,9 @@ class SyntheticDataset:
 
     def sdf_mae(self, sdf_fn, n: int = 20000, seed: int = 0) -> float:
         """Mean |sdf_fn - analytic SDF| over ``n`` points drawn uniformly
-        (numpy, fixed seed) in the room box inset by 5 cm. A simple check of
-        the learned field; the reference's eval protocol is not ported."""
+        (numpy, fixed seed) in the room box inset by 5 cm: a quick check of
+        the learned field over the whole room (the reference's protocol,
+        eval/protocol.py, scores the visible region)."""
         rng = np.random.default_rng(seed)
         half = self.scene.extents / 2.0 - 0.05
         pts = (self.scene.center + rng.uniform(-1.0, 1.0, (n, 3)) * half

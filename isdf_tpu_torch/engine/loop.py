@@ -3,16 +3,19 @@ isdf/train/train.py:19-279).
 
 Per round:
   1. if the per-frame iteration budget is spent, run the keyframe state
-     machine and possibly ingest the frame at int(tot_step_time * fps);
-  2. run the remaining budget as one bundle of steps;
-  3. timed evals through ``eval_hook``.
+     machine and possibly ingest the frame at int(tot_step_time * fps)
+     (incremental mode only);
+  2. run the remaining budget as one bundle of steps, or one step with
+     ``bundle=False`` (the reference's per-step loop);
+  3. timed evals: ``eval_hook``, else with eval.do_eval the reference
+     protocol (eval/protocol.py::eval_sdf over the visible region, seeded
+     by the timestamp), keyed "rays" in res.json.
 
 After the last frame, a refinement tail of ``extra_opt_steps`` runs with
 the output noise off, the window drawn from all keyframes and the lr
-cosine-annealed to tail_lr_min. The reference eval protocol, checkpoints,
-slices, meshes and pose refinement are not ported: a config that asks for
-timed eval needs an ``eval_hook`` (train/train.py passes one for the
-synthetic scene's analytic SDF).
+cosine-annealed to tail_lr_min; then a final eval of the settled model.
+Checkpoints, slices, meshes, the mesh and voxblox evals and pose
+refinement are not ported (the Trainer refuses such a config).
 """
 
 from __future__ import annotations
@@ -39,19 +42,25 @@ class LoopResult:
     losses_last: Dict[str, float]
 
 
+def _timed_eval(trainer: Trainer, eval_hook):
+    """One eval entry: the hook's, else the reference protocol's (isdf_tpu
+    loop.py:219-228), sampled with a seed fixed by the timestamp."""
+    if eval_hook is not None:
+        return eval_hook(trainer)
+    from isdf_tpu_torch.eval.protocol import eval_sdf
+    return {"rays": eval_sdf(trainer, visible_region=True,
+                             seed=int(trainer.tot_step_time * 1e3))}
+
+
 def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
-               max_time_s: Optional[float] = None,
+               max_time_s: Optional[float] = None, bundle: bool = True,
                extra_opt_steps: int = 400, save_path: Optional[str] = None,
                eval_hook: Optional[Callable[[Trainer], Dict]] = None,
                log_fn: Optional[Callable[[str], None]] = None) -> LoopResult:
     cfg = trainer.cfg
     size_dataset = len(trainer.dataset)
     max_steps = max_steps if max_steps is not None else cfg.n_steps
-    if cfg.do_eval and eval_hook is None:
-        raise NotImplementedError(
-            "eval.do_eval needs an eval_hook: the reference eval protocol "
-            "is not ported to isdf_tpu_torch yet")
-    do_timed_eval = eval_hook is not None
+    do_timed_eval = cfg.do_eval or eval_hook is not None
     res = {"sdf_eval": {}} if do_timed_eval else {}
     last_eval = 0.0
     break_at = -1
@@ -66,7 +75,7 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
             break
         # ---- frame ingestion / keyframe bookkeeping ----
         finish_optim = trainer.steps_since_frame == trainer.optim_frames
-        if finish_optim or t == 0:
+        if trainer.incremental and (finish_optim or t == 0):
             add_new_frame = True if t == 0 else trainer.check_keyframe_latest()
             if add_new_frame:
                 new_frame_id = trainer.get_latest_frame_id()
@@ -101,7 +110,7 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
                 1.0 + np.cos(np.pi * frac))
         if cfg.steps_per_bundle > 0:
             budget = min(budget, cfg.steps_per_bundle)
-        n = min(budget, max_steps - t)
+        n = min(budget if bundle else 1, max_steps - t)
         scalars = trainer.run_steps(n)
         losses_last = {k: float(v[-1]) for k, v in scalars.items()}
         t += n
@@ -119,14 +128,20 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
             last_eval = (trainer.tot_step_time
                          - trainer.tot_step_time % cfg.eval_freq_s)
             _te0 = time.perf_counter()
-            entry = eval_hook(trainer)
+            entry = _timed_eval(trainer, eval_hook)
             trainer.step_timer.add("eval", time.perf_counter() - _te0)
             if entry:
                 res["sdf_eval"][t] = {"time": trainer.tot_step_time, **entry}
+            if save_path:
+                with open(os.path.join(save_path, "res.json"), "w") as f:
+                    json.dump(res, f, indent=4)
 
-    # final eval of the settled model
+    # final eval of the settled model (the in-loop cadence can fire before
+    # the refinement tail ends; the shipped state is what is scored)
     if do_timed_eval:
-        entry = eval_hook(trainer)
+        _te0 = time.perf_counter()
+        entry = _timed_eval(trainer, eval_hook)
+        trainer.step_timer.add("eval", time.perf_counter() - _te0)
         if entry:
             res["sdf_eval"][t] = {"time": trainer.tot_step_time, **entry}
 

@@ -20,7 +20,13 @@ The loss and gradient take one of two routes, chosen as isdf_tpu chooses
   ops), ``"auto"`` (nested autograd through the MLP), the pallas mode
   where the fused op is not built (the reverse-fused op of
   models/cuda_reverse_fused.py, kernels K2/K3 on the card), or a plain
-  forward when the eikonal and gradient weights are both 0.
+  forward when the eikonal and gradient weights are both 0. The Gaussian
+  embedding (``model.gauss_embed``) always takes nested autograd, its
+  matrix B trained with the MLP, as in isdf_tpu (step.py:146, 197).
+
+``tpu.mm_precision`` other than "default" runs the kernels K1-K3 in their
+f32-product mode (csrc/*_f32.cu), as isdf_tpu builds its Pallas kernels
+with mm_dtype = float32.
 
 ``tpu.use_pallas`` sends the pc bounds computed outside the fused op to the
 nearest-surface kernel K4 (ops/cuda_bounds.py; its plain version on the
@@ -43,7 +49,7 @@ import torch
 
 from isdf_tpu_torch.engine.buffer import FrameBuffer
 from isdf_tpu_torch.models import sdf_mlp as M
-from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op
+from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op, source
 from isdf_tpu_torch.models.cuda_reverse_fused import make_cuda_reverse_fused
 from isdf_tpu_torch.models.fused_adamw import make_fused_adamw
 from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
@@ -54,6 +60,8 @@ from isdf_tpu_torch.ops import sampling as S
 from isdf_tpu_torch.utils.config import Config
 
 _MASK64 = (1 << 64) - 1
+# the trained parameters, in the order of a step's gradients
+PARAM_KEYS = ("Wp", "bp", "B")
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -105,10 +113,6 @@ class StepFunctions:
         self.cfg, self.model, self.H, self.W = cfg, model, H, W
         self.device = torch.device(device)
         self.dirs = dirs_C_img.to(self.device)
-        if cfg.gauss_embed:
-            raise NotImplementedError(
-                "the Gaussian embedding (gauss_embed) is not ported to "
-                "isdf_tpu_torch yet")
         if cfg.data_parallel > 1:
             raise NotImplementedError(
                 "data parallelism (tpu.data_parallel > 1) is not ported to "
@@ -122,7 +126,8 @@ class StepFunctions:
         # 256, its plain version runs at any width
         fused = (cfg.grad_mode == "pallas" and self.do_sdf_grad
                  and (cfg.data_parallel == 1 or cfg.pe_in_kernel)
-                 and (not cuda or model.hidden_size == HID))
+                 and (not cuda or model.hidden_size == HID)
+                 and not model.gauss_embed)
         self.pc_in_kernel = (fused and cfg.pc_in_kernel and cfg.pe_in_kernel
                              and cfg.bounds_method == "pc")
         self.train_op = self.rf_op = None
@@ -135,13 +140,14 @@ class StepFunctions:
                 eik_apply_dist=cfg.eik_apply_dist, eik_weight=cfg.eik_weight,
                 grad_weight=cfg.grad_weight, orien_loss=cfg.orien_loss,
                 pc_bounds=self.pc_in_kernel, pe_in_kernel=cfg.pe_in_kernel)
-            sources.append("train_mlp")
-        elif cfg.grad_mode != "auto" and self.do_sdf_grad:
+            sources.append(source("train_mlp", model))
+        elif (cfg.grad_mode != "auto" and self.do_sdf_grad
+              and not model.gauss_embed):
             # isdf_tpu step.py:207-216: the Pallas op on the accelerator
             if (cfg.grad_mode == "pallas" and cuda
                     and model.hidden_size == HID):
                 self.rf_op = make_cuda_reverse_fused(model)
-                sources.append("reverse_fused")
+                sources.append(source("reverse_fused", model))
             else:
                 self.rf_op = make_reverse_fused_mlp(model)
         if (cfg.use_pallas and cfg.bounds_method == "pc"
@@ -271,13 +277,15 @@ class StepFunctions:
                                dirs_W, depth, normals, valid, noise,
                                surf=None, sv=None):
         """ray_batch_loss and its gradient in the packed planes (isdf_tpu
-        step.py:428-436) -> (scalars, ploss [R, S], (dW, db))."""
+        step.py:428-436) -> (scalars, ploss [R, S], (dW, db[, dB])), dB
+        the Gaussian embedding's where the model has one."""
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         with torch.enable_grad():
             out = self.ray_batch_loss(p, transform, pc, z_vals, dirs_C,
                                       dirs_W, depth, normals, valid, noise,
                                       surf=surf, sv=sv)
-            grads = torch.autograd.grad(out.total, [p["Wp"], p["bp"]])
+            grads = torch.autograd.grad(
+                out.total, [p[k] for k in PARAM_KEYS if k in p])
         scalars = {k: v.detach() for k, v in out.scalars.items()}
         return scalars, out.mat.detach(), grads
 
@@ -285,8 +293,15 @@ class StepFunctions:
                idxs, slot_valid, ib, ih, iw, valid, lr_scale):
         """AdamW on the packed planes, then the replay-priority write-back
         (reference trainer.py:979): per-frame average loss over an 8x8
-        block pooling of the ray losses."""
-        self.adamw(params, {"Wp": grads[0], "bp": grads[1]}, opt_state,
+        block pooling of the ray losses.
+
+        An arena smaller than the window (C < window_size) only ever
+        takes select_window's first branch, whose slots past the arena are
+        padding and not valid: their writes are dropped, as isdf_tpu's
+        scatters drop out-of-range rows. The sums and counts add 0 for
+        them (at a clamped row); the priority grids are written for the
+        valid slots only, the first ``count``."""
+        self.adamw(params, dict(zip(PARAM_KEYS, grads)), opt_state,
                    lr_scale)
         ray_loss = ploss.sum(-1)
         loss_approx, frame_avg = L.frame_avg_loss(
@@ -294,14 +309,21 @@ class StepFunctions:
             self.W, factor=8)
         C = buf.frame_avg_loss.shape[0]
         dev = ploss.device
+        small = C < idxs.shape[0]
+        rows = idxs.clamp(max=C - 1) if small else idxs
         sums = torch.zeros(C, device=dev).index_add_(
-            0, idxs, torch.where(slot_valid, frame_avg, 0.0))
+            0, rows, torch.where(slot_valid, frame_avg, 0.0))
         cnts = torch.zeros(C, device=dev).index_add_(
-            0, idxs, slot_valid.float())
+            0, rows, slot_valid.float())
         buf.frame_avg_loss.copy_(torch.where(
             cnts > 0, sums / cnts.clamp(min=1.0), buf.frame_avg_loss))
-        buf.loss_approx[idxs] = torch.where(
-            slot_valid[:, None, None], loss_approx, buf.loss_approx[idxs])
+        if small:
+            n = buf.count
+            buf.loss_approx[idxs[:n]] = loss_approx[:n]
+        else:
+            buf.loss_approx[idxs] = torch.where(
+                slot_valid[:, None, None], loss_approx,
+                buf.loss_approx[idxs])
 
     def core(self, params, opt_state, buf: FrameBuffer, transform, gen,
              noise_std: float, lr_scale: float, tail: bool):
@@ -310,13 +332,18 @@ class StepFunctions:
         dev = self.device
         idxs, slot_valid = select_window(gen, buf.count, buf.frame_avg_loss,
                                          Wn, tail=tail)
+        # the arena's rows of the window's slots: clamped where the arena
+        # is smaller than the window, as isdf_tpu's gathers clamp (those
+        # slots are padding, masked by slot_valid)
+        C = buf.frame_avg_loss.shape[0]
+        rows = idxs.clamp(max=C - 1) if C < Wn else idxs
         if cfg.do_active:
             ib, ih, iw = S.sample_pixels_active(
-                gen, n_rays, Wn, H, W, buf.loss_approx[idxs],
+                gen, n_rays, Wn, H, W, buf.loss_approx[rows],
                 cfg.active_frac)
         else:
             ib, ih, iw = S.sample_pixels(gen, n_rays, Wn, H, W, dev)
-        gi = idxs[ib]
+        gi = rows[ib]
         depth = buf.depth[gi, ih, iw]
         valid = (depth != 0.0) & slot_valid[ib]
         if cfg.do_normal:
@@ -393,3 +420,21 @@ class StepFunctions:
 
     def eval_sdf_grad(self, params, pts, transform):
         return M.sdf_and_grad(params, pts, self.model, transform=transform)[1]
+
+    @torch.no_grad()
+    def render_depth(self, params, T_WC, dirs_C, gt_depth, transform, gen,
+                     n_strat: int = 40, draws=None):
+        """Depth along given rays by dense stratified sampling and the
+        first sign crossing (isdf_tpu step.py:583-597): T_WC [F, 4, 4],
+        dirs_C [F, N, 3], gt_depth [F, N] bounds the range like the
+        training sampler, with no surface samples. ``draws``: the
+        stratified uniforms [F * N, n_strat] (tests). -> depth [F, N]."""
+        F, N, _ = dirs_C.shape
+        Tb = T_WC.repeat_interleave(N, dim=0)
+        pc, z_vals, _, _ = S.sample_along_rays(
+            gen, Tb, dirs_C.reshape(F * N, 3), gt_depth.reshape(F * N),
+            self.cfg.min_depth, self.cfg.dist_behind_surf, n_strat, 0,
+            draws=None if draws is None else (draws, None))
+        sdf = M.apply(params, pc, self.model, transform=transform)
+        z_sorted, sdf_sorted = R.sort_by_z(z_vals, sdf)
+        return R.sdf_render_depth(z_sorted, sdf_sorted).reshape(F, N)

@@ -1,9 +1,9 @@
 """Trainer — the public orchestrator (isdf_tpu/engine/trainer.py; reference
 isdf/modules/trainer.py).
 
-Host responsibilities only: frame ingestion, the keyframe state machine
-and the simulated clock. All per-step compute runs in engine/step.py on
-the trainer's device.
+Host responsibilities only: frame ingestion, the keyframe state machine,
+the simulated clock, the scene frame and the eval queries. All per-step
+compute runs in engine/step.py on the trainer's device.
 
 Simulated-clock contract (reference trainer.py:100-101, 1011-1013): time
 spent optimising, scaled by 1/frac_time_perception, advances
@@ -14,13 +14,19 @@ isdf/eval/metrics.py:13-38); on the CPU its wall time. Setting
 ``_per_step_device_s`` bills a fixed time per step instead, capped at the
 measured time unless ``_bill_exact`` pins the clock exactly (replays).
 
-Not ported yet: eval, meshing, visualisation, checkpoints, pose
-refinement and data parallelism; a config that asks for them raises.
+``incremental=False`` is the batch mode: the chosen views are loaded as
+keyframes at start and nothing is ingested later (reference
+trainer.py:514-528).
+
+Not ported yet: the mesh and voxblox evals, meshing, visualisation,
+checkpoints, pose refinement, data parallelism and GT SDF grids from
+disk; a config that asks for them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List
 
@@ -46,8 +52,6 @@ def check_supported(cfg: Config):
         missing.append("model.refine_poses (pose refinement)")
     if cfg.data_parallel > 1:
         missing.append("tpu.data_parallel > 1")
-    if cfg.gauss_embed:
-        missing.append("the Gaussian embedding")
     if cfg.mesh_eval or cfg.do_vox_comparison:
         missing.append("eval.mesh_eval / eval.do_vox_comparison")
     if cfg.save_checkpoints or cfg.save_slices or cfg.save_meshes:
@@ -58,12 +62,15 @@ def check_supported(cfg: Config):
 
 
 class Trainer:
-    def __init__(self, config, dataset=None, seed: int = 1, device=None):
+    def __init__(self, config, dataset=None, incremental: bool = True,
+                 grid_dim: int = 200, seed: int = 1, device=None):
         self.device = resolve_device(device)
         self.cfg: Config = (load_config(config) if isinstance(config, str)
                             else config)
         cfg = self.cfg
         check_supported(cfg)
+        self.incremental = incremental
+        self.grid_dim = grid_dim
         self.chunk_size = 262144
 
         # ---- dataset & camera ----
@@ -82,11 +89,29 @@ class Trainer:
 
         # ---- scene frame: the PE sees points in the unit-box frame
         # (reference trainer.py:103-155) ----
-        bounds_T = (np.asarray(dataset.scene_bounds()[0], np.float32)
-                    if hasattr(dataset, "scene_bounds")
-                    else np.eye(4, dtype=np.float32))
-        self.transform_dev = torch.as_tensor(
-            np.linalg.inv(bounds_T).astype(np.float32), device=self.device)
+        if hasattr(dataset, "scene_bounds"):
+            T, extents = dataset.scene_bounds()
+            self.set_scene_properties(np.asarray(T), np.asarray(extents))
+        elif cfg.workspace_extents is not None:
+            # user-defined workspace (reference trainer.py:114-119): the
+            # bounds transform is Rz(rotate_z degrees) with the workspace
+            # offset as translation; the centre is kept for visualisation
+            a = np.deg2rad(cfg.workspace_rotate_z)
+            c, s = np.cos(a), np.sin(a)
+            T = np.array([[c, -s, 0, 0], [s, c, 0, 0],
+                          [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+            T[:3, 3] = np.asarray(cfg.workspace_offset, np.float32)
+            self.scene_center = np.asarray(cfg.workspace_center, np.float32)
+            self.set_scene_properties(T, np.asarray(cfg.workspace_extents))
+        elif cfg.gt_sdf_dir and os.path.exists(
+                os.path.join(cfg.gt_sdf_dir, "mesh.obj")):
+            raise NotImplementedError(
+                "not ported to isdf_tpu_torch yet: the scene frame from "
+                "dataset.gt_sdf_dir/mesh.obj")
+        else:
+            # bootstrap domain, until the pointcloud refines it
+            self.set_scene_properties(np.eye(4, dtype=np.float32),
+                                      np.array([6.0, 6.0, 6.0], np.float32))
 
         # ---- model / optimiser / arena ----
         self.model = M.SDFModel(
@@ -95,6 +120,8 @@ class Trainer:
             hidden_layers_block=cfg.hidden_layers_block,
             scale_output=cfg.scale_output, scale_input=cfg.scale_input,
             min_deg=0, max_deg=cfg.n_embed_funcs,
+            gauss_embed=cfg.gauss_embed,
+            gauss_embed_std=cfg.gauss_embed_std,
             mm_precision=cfg.mm_precision)
         self.params = M.init_params(torch.Generator().manual_seed(seed),
                                     self.model, device=self.device)
@@ -128,6 +155,62 @@ class Trainer:
         self._bill_exact = False
         self.measured_s = 0.0   # summed measured bundle time (device on
         #                         the card), whatever the clock billed
+
+        # GT SDF for eval (numpy [N, 3] -> [N]); GT grids from disk are
+        # not ported (reference trainer.py:446-453)
+        self.gt_sdf_fn = getattr(dataset, "gt_sdf_fn", None)
+        if self.gt_sdf_fn is None and hasattr(dataset, "scene"):
+            self.gt_sdf_fn = dataset.scene.sdf_np
+
+        # batch (non-incremental) mode: the chosen views become keyframes
+        # now (reference trainer.py:514-528)
+        if not incremental:
+            idxs = list(cfg.im_indices)
+            if not idxs and cfg.n_views > 0:
+                n = len(self.dataset)
+                if cfg.random_views:
+                    idxs = list(np.random.default_rng(seed).choice(
+                        np.arange(n), size=cfg.n_views, replace=False))
+                else:
+                    idxs = list(np.linspace(0, n, cfg.n_views, dtype=int,
+                                            endpoint=False))
+            for i in idxs:
+                self.last_is_keyframe = True
+                self.add_frame(self.get_data([int(i)])[0])
+            self.last_is_keyframe = True
+
+    # ------------------------------------------------------------------
+    # scene frame
+
+    def set_scene_properties(self, bounds_transform: np.ndarray,
+                             extents: np.ndarray):
+        """The normalised training domain (reference trainer.py:103-155):
+        bounds_transform maps the unit-box frame to the world, extents is
+        the box size; grid_pc spans [-1, 1]^3 * scene_scale through that
+        transform."""
+        self.bounds_transform_np = np.asarray(bounds_transform, np.float32)
+        self.inv_bounds_transform_np = np.linalg.inv(
+            self.bounds_transform_np).astype(np.float32)
+        self.scene_scale_np = (np.asarray(extents, np.float32)
+                               / np.float32(2.0 * 0.9))
+        self.transform_dev = torch.as_tensor(self.inv_bounds_transform_np,
+                                             device=self.device)
+        self.scene_extents_np = np.asarray(extents, np.float32)
+        self._grid_pc = None
+
+    @property
+    def grid_pc(self):
+        """The meshing grid [grid_dim^3, 3] on the trainer's device, built
+        at first use (96 MB at grid_dim 200)."""
+        if self._grid_pc is None:
+            self._grid_pc = G.make_3D_grid(
+                (-1.0, 1.0), self.grid_dim,
+                transform=torch.as_tensor(self.bounds_transform_np,
+                                          device=self.device),
+                scale=torch.as_tensor(self.scene_scale_np,
+                                      device=self.device),
+                device=self.device).reshape(-1, 3)
+        return self._grid_pc
 
     # ------------------------------------------------------------------
     # ingestion
@@ -273,13 +356,28 @@ class Trainer:
     # ------------------------------------------------------------------
     # queries
 
-    def sdf_fn(self, pts: np.ndarray) -> np.ndarray:
-        """Chunked SDF query, numpy in and out."""
-        pts = np.asarray(pts, np.float32)
-        out = []
-        for i in range(0, pts.shape[0], self.chunk_size):
-            x = torch.as_tensor(pts[i:i + self.chunk_size],
-                                device=self.device)
-            out.append(self.fns.eval_sdf(self.params, x, self.transform_dev)
-                       .cpu().numpy())
-        return np.concatenate(out) if out else np.zeros((0,), np.float32)
+    def _chunked_eval(self, pts, fn, out_tail):
+        """A query over chunks of chunk_size points on the device, gathered
+        there and fetched once (isdf_tpu trainer.py:586-611). ``pts``:
+        numpy or a tensor [N, 3]."""
+        x = torch.as_tensor(pts, dtype=torch.float32, device=self.device)
+        if x.shape[0] == 0:
+            return np.zeros((0,) + out_tail, np.float32)
+        out = [fn(self.params, x[i:i + self.chunk_size], self.transform_dev)
+               for i in range(0, x.shape[0], self.chunk_size)]
+        return torch.cat(out).cpu().numpy()
+
+    def sdf_fn(self, pts) -> np.ndarray:
+        """Chunked SDF query [N, 3] -> [N], numpy out (reference
+        trainer.py:2066-2070)."""
+        return self._chunked_eval(pts, self.fns.eval_sdf, ())
+
+    def grad_fn(self, pts) -> np.ndarray:
+        """Chunked spatial-gradient query [N, 3] -> [N, 3], numpy out."""
+        return self._chunked_eval(pts, self.fns.eval_sdf_grad, (3,))
+
+    def get_sdf_grid(self) -> np.ndarray:
+        """Dense SDF grid [grid_dim]^3 over grid_pc (reference
+        trainer.py:1426-1444)."""
+        return self.sdf_fn(self.grid_pc).reshape(
+            self.grid_dim, self.grid_dim, self.grid_dim)

@@ -26,11 +26,13 @@ Two executors of the same function:
     and output head stay float32. The CPU tests hold it against the JAX
     package, and chip_smoke.py holds the kernel against it on the card.
   * the CUDA kernel csrc/train_mlp.cu (sm_90a), built with nvcc at first
-    use into a directory .gitignore lists, and bound through ctypes.
+    use into a directory .gitignore lists, and bound through ctypes; for
+    mm_precision other than "default" its f32-product mode,
+    csrc/train_mlp_f32.cu (isdf_tpu's mm_dtype = float32).
 
 ``make_train_op`` returns a function that takes the plain version for CPU
 tensors and launches the kernel for CUDA tensors; it never falls back.
-``LAUNCHES`` counts kernel launches per variant.
+``LAUNCHES`` counts kernel launches per variant, the f32 mode's apart.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ N_SPLITS = 16     # split-K partials of the dW products
 DW_SLAB = 32      # rows per shared-memory slab of k_dw (csrc: DW_KS)
 HALF_PI = float(np.float32(np.pi / 2))
 
-# kernel launches per variant; only the wrapper below adds to them
-LAUNCHES = {"K1-pc": 0, "K1-ray": 0, "K1-stream": 0}
+# kernel launches per variant, "-f32" the f32-product mode; only the
+# wrapper below adds to them
+LAUNCHES = {"K1-pc": 0, "K1-ray": 0, "K1-stream": 0, "K1-pc-f32": 0,
+            "K1-ray-f32": 0, "K1-stream-f32": 0}
 MODES = {"K1-pc": 0, "K1-ray": 1, "K1-stream": 2}
 
 # the pointer fields of the kernels' argument block (csrc/mlp_tile.cuh,
@@ -223,31 +227,47 @@ def check_kernel_model(model: SDFModel):
     if model.hidden_size != HID or model.embedding_size > HID:
         raise ValueError("the MLP kernels need hidden_size == 256 and "
                          "an embedding of at most 256 lanes")
-    if model.mm_precision != "default":
-        raise NotImplementedError(
-            "the MLP kernels run bf16 hidden products only "
-            "(mm_precision='default')")
+
+
+def is_f32(model: SDFModel) -> bool:
+    """Whether the kernels run their f32-product mode for this model."""
+    return FV.mm_dtype_of(model) == torch.float32
+
+
+def source(name: str, model: SDFModel) -> str:
+    """The csrc/ source of an MLP kernel library ("train_mlp",
+    "reverse_fused") in the model's product mode."""
+    return name + "_f32" if is_f32(model) else name
 
 
 def weight_args(params, model: SDFModel):
-    """The weight pointers of the argument block: W (bf16 planes), b and
-    w_out, checked."""
+    """The weight pointers of the argument block: W (the planes in the
+    products' operand type: bf16, or f32 as they are), b and w_out,
+    checked."""
     L = model.n_layers
     Wp, bp = params["Wp"], params["bp"]
     _check("Wp", Wp, (L, 2 * HID, HID))
     _check("bp", bp, (L, HID))
-    return dict(W=Wp.to(torch.bfloat16).contiguous(), b=bp,
-                w_out=Wp[L - 1, :HID, 0].contiguous())
+    W = Wp if is_f32(model) else Wp.to(torch.bfloat16).contiguous()
+    return dict(W=W, b=bp, w_out=Wp[L - 1, :HID, 0].contiguous())
 
 
-BF16_SCRATCH = ("peb", "m0b", "hb", "tb", "dzb", "dub")
+# the scratch planes that hold product operands (bf16, or f32 in the f32
+# mode); the rest of the scratch is f32 in both modes
+OPERAND_SCRATCH = ("peb", "m0b", "hb", "tb", "dzb", "dub")
 
 
-def k1_geometry(N: int, L: int) -> dict:
+def k1_geometry(N: int, L: int, f32: bool = False) -> dict:
     """Launch geometry of the MLP kernels' phases for N points and L packed
     layers: NP rows in n_tiles tiles of TM (phase 1), S splits of rps rows
     each, a multiple of the k_dw slab (phase 2), and the shapes of the
-    scratch the phases pass on (phase 3 reads the partials)."""
+    scratch the phases pass on (phase 3 reads the partials). ``f32``: the
+    f32-product mode. Also the mode's operand dtype and the shared memory
+    of each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW):
+    the activation tiles X and X2 (TM rows of ldx), the weight ring
+    (NSTAGE stages of 256 rows of KS + 8), k_dw's ring (dw_stages stages of
+    the four operands' DW_SLAB rows of 136), and the static shared arrays
+    of k_train_tile (smem_static)."""
     nh = L - 1
     NP = _round_up(max(N, 1), TM)
     n_tiles = NP // TM
@@ -259,17 +279,29 @@ def k1_geometry(N: int, L: int) -> dict:
         part_scal=(n_tiles, 8), part_db=(n_tiles, L * HID),
         part_dwout=(n_tiles, HID), part_dw=(N_SPLITS, nh + 1, HID, HID),
         dW=(L, 2 * HID, HID), db=(L, HID))
+    op_dtype = torch.float32 if f32 else torch.bfloat16
+    esz = 4 if f32 else 2
+    ldx, ks, nstage = (260 if f32 else 264), 32, 2
+    dw_stages = 2 if f32 else 3
+    smem = (2 * TM * ldx + nstage * HID * (ks + 8)) * esz
+    smem_dw = dw_stages * 4 * DW_SLAB * 136 * esz
+    smem_static = (22 * TM + HID) * 4  # per-row columns, ctb, st_col
+    dtypes = {k: op_dtype if k in OPERAND_SCRATCH else torch.float32
+              for k in shapes}
     return dict(NP=NP, n_tiles=n_tiles, S=N_SPLITS, rps=rps, slab=DW_SLAB,
-                shapes=shapes)
+                shapes=shapes, dtypes=dtypes, op_dtype=op_dtype, ldx=ldx,
+                ks=ks, nstage=nstage, dw_stages=dw_stages, smem=smem,
+                smem_dw=smem_dw, smem_static=smem_static,
+                blocks_per_sm=1 if f32 else 2)
 
 
 def vjp_scratch(model: SDFModel, N: int, dev):
-    """Scratch of the parameter-VJP phases for N points (sig/u stash, bf16
-    dW operands, per-tile and split-K partials) and the dW/db outputs."""
-    shapes = k1_geometry(N, model.n_layers)["shapes"]
-    return {k: torch.empty(shape, device=dev, dtype=torch.bfloat16
-                           if k in BF16_SCRATCH else torch.float32)
-            for k, shape in shapes.items()}
+    """Scratch of the parameter-VJP phases for N points (sig/u stash, dW
+    operands in the products' type, per-tile and split-K partials) and the
+    dW/db outputs."""
+    geo = k1_geometry(N, model.n_layers, f32=is_f32(model))
+    return {k: torch.empty(shape, device=dev, dtype=geo["dtypes"][k])
+            for k, shape in geo["shapes"].items()}
 
 
 def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
@@ -279,7 +311,7 @@ def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
     null)."""
     unknown = set(ptrs) - set(ARG_PTRS)
     assert not unknown, unknown
-    geo = k1_geometry(N, model.n_layers)
+    geo = k1_geometry(N, model.n_layers, f32=is_f32(model))
     lk = lk or dict(so=0.0, trunc_d=0.0, tw=0.0, gw=0.0, ew=0.0, ead=0.0,
                     fsf=0.0, loss_type="L1", orien=False)
     knobs = [lk["so"], lk["trunc_d"], lk["tw"], lk["gw"], lk["ew"],
@@ -296,9 +328,10 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
                   surf_valid=None, zd=None, normals_pt=None, is_surf=None,
                   pe=None):
     """Launch the kernel (three phases on the current stream). Same
-    arguments and results as train_op_plain with mm_dtype=bf16."""
+    arguments and results as train_op_plain with mm_dtype =
+    FV.mm_dtype_of(model)."""
     check_kernel_model(model)
-    name = ("K1-pc" if surf is not None else
+    mode = ("K1-pc" if surf is not None else
             "K1-stream" if pe is not None else "K1-ray")
     N = (pe if pe is not None else pts).shape[0]
     dev = (pe if pe is not None else pts).device
@@ -309,14 +342,14 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     _check("Tc", Tc, (3, HID))
     ptrs.update(valid=valid, noise=noise, inv_count=inv_count, Tc=Tc)
     R = 0
-    if name == "K1-stream":
+    if mode == "K1-stream":
         _check("pe", pe, (N, model.embedding_size))
         ptrs["pe_in"] = pe
     else:
         _check("pts", pts, (N, 3))
         _check("M", M, (128, HID))
         ptrs.update(pts=pts, Mc=M[:4].contiguous())
-    if name == "K1-pc":
+    if mode == "K1-pc":
         R = surf.shape[0]
         _check("surf", surf, (R, 3))
         _check("surf_valid", surf_valid, (R,))
@@ -333,9 +366,9 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     ptrs.update(vjp_scratch(model, N, dev))
     ptrs.update(ploss=torch.empty(N, device=dev),
                 sums=torch.empty(5, device=dev))
-    launch(nvcc.load("train_mlp"), "isdf_train_mlp", model, N, ptrs, lk=lk,
-           R=R, extra_ints=(MODES[name],))
-    LAUNCHES[name] += 1
+    launch(nvcc.load(source("train_mlp", model)), "isdf_train_mlp", model,
+           N, ptrs, lk=lk, R=R, extra_ints=(MODES[mode],))
+    LAUNCHES[mode + ("-f32" if is_f32(model) else "")] += 1
     return ptrs["sums"], ptrs["ploss"], (ptrs["dW"], ptrs["db"])
 
 
@@ -357,7 +390,7 @@ def make_train_op(model: SDFModel, *, loss_type: str, trunc_distance: float,
 
     CPU tensors take train_op_plain (hidden products in bf16 when
     model.mm_precision == "default", else f32); CUDA tensors launch the
-    kernel.
+    kernel in the same product mode.
     """
     assert eik_weight != 0.0 or grad_weight != 0.0, \
         "the train op needs the spatial-gradient losses"

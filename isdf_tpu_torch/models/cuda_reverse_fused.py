@@ -4,7 +4,9 @@ Port of isdf_tpu/models/pallas_mlp.py::make_pallas_reverse_fused: a
 differentiable op (params, pe [N,E], cos_b [N,2F], dxs [3,3], dproj2 [3,2F])
 -> (raw [N], graw [N,3]) whose forward is the kernel K2 (TPU kernel
 ``_make_kernel_f``) and whose backward is the kernel K3 (``_make_kernel_b``),
-both in csrc/reverse_fused.cu (sm_90a), built at first use.
+both in csrc/reverse_fused.cu (sm_90a), built at first use; for
+mm_precision other than "default" their f32-product mode,
+csrc/reverse_fused_f32.cu.
 
 * K2: forward, reverse v-chain and the factored tangent contraction.
 * K3: the parameter VJP from (draw, dgraw) through the combined tangent,
@@ -28,8 +30,9 @@ from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
 from isdf_tpu_torch.models.sdf_mlp import SDFModel
 from isdf_tpu_torch.utils import nvcc
 
-# kernel launches; only the wrappers below add to them
-LAUNCHES = {"K2": 0, "K3": 0}
+# kernel launches, "-f32" the f32-product mode; only the wrappers below
+# add to them
+LAUNCHES = {"K2": 0, "K3": 0, "K2-f32": 0, "K3-f32": 0}
 
 
 def _inputs(params, model: SDFModel, pe, Tc):
@@ -42,6 +45,12 @@ def _inputs(params, model: SDFModel, pe, Tc):
     return N, K._round_up(N, K.TM), ptrs
 
 
+def _lib(model: SDFModel):
+    """(library, launch-count suffix) of the model's product mode."""
+    return (nvcc.load(K.source("reverse_fused", model)),
+            "-f32" if K.is_f32(model) else "")
+
+
 def rf_forward_cuda(params, model: SDFModel, pe, Tc):
     """K2 on the current stream -> (raw [N], graw [N, 3])."""
     N, NP, ptrs = _inputs(params, model, pe, Tc)
@@ -50,8 +59,9 @@ def rf_forward_cuda(params, model: SDFModel, pe, Tc):
                 sig=torch.empty(model.n_layers - 1, NP, K.HID, device=dev),
                 raw_out=torch.empty(N, device=dev),
                 graw_out=torch.empty(N, 3, device=dev))
-    K.launch(nvcc.load("reverse_fused"), "isdf_rf_forward", model, N, ptrs)
-    LAUNCHES["K2"] += 1
+    lib, suffix = _lib(model)
+    K.launch(lib, "isdf_rf_forward", model, N, ptrs)
+    LAUNCHES["K2" + suffix] += 1
     return ptrs["raw_out"], ptrs["graw_out"]
 
 
@@ -62,8 +72,9 @@ def rf_backward_cuda(params, model: SDFModel, pe, Tc, draw, dgraw):
     K._check("dgraw", dgraw, (N, 3))
     ptrs.update(K.vjp_scratch(model, N, pe.device))
     ptrs.update(draw_in=draw, dg_in=dgraw)
-    K.launch(nvcc.load("reverse_fused"), "isdf_rf_backward", model, N, ptrs)
-    LAUNCHES["K3"] += 1
+    lib, suffix = _lib(model)
+    K.launch(lib, "isdf_rf_backward", model, N, ptrs)
+    LAUNCHES["K3" + suffix] += 1
     return ptrs["dW"], ptrs["db"]
 
 

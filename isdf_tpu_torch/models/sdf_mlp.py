@@ -26,8 +26,10 @@ hidden width):
 with L = 2 * hidden_layers_block + 3 and every padded entry zero. At
 H = 256, E = 255 this is exactly the JAX package's [L, 512, 256] plane, so
 the optimiser runs elementwise on these planes and the kernel reads them
-as they are. ``params_from_jax`` / ``params_to_jax`` convert from / to the
-JAX pytree (keys in/mid1/cat/mid2/out, w stored [fan_in, fan_out]).
+as they are. With the Gaussian embedding (``gauss_embed``) the params also
+hold its matrix ``B`` [3, (E - 3) / 2], trained with the MLP as isdf_tpu
+trains it. ``params_from_jax`` / ``params_to_jax`` convert from / to the
+JAX pytree (keys in/mid1/cat/mid2/out[/B], w stored [fan_in, fan_out]).
 """
 
 from __future__ import annotations
@@ -54,9 +56,11 @@ class SDFModel:
     scale_input: float = 0.05937489
     min_deg: int = 0
     max_deg: int = 5
-    # hidden products of the train kernel: "default" = bf16 x bf16 -> f32
+    # hidden products of the MLP kernels: "default" = bf16 x bf16 -> f32
     # (the JAX package's default), anything else = f32
     mm_precision: str = "default"
+    gauss_embed: bool = False
+    gauss_embed_std: float = 11.0
 
     @property
     def n_layers(self) -> int:
@@ -72,7 +76,11 @@ class SDFModel:
         k = max(self.hidden_size, self.embedding_size)
         return (k + 15) // 16 * 16
 
-    def encode(self, x, transform=None):
+    def encode(self, params: Params, x, transform=None):
+        """Positional encoding of world points x [..., 3]."""
+        if self.gauss_embed:
+            return emb.gaussian_encoding(x, params["B"], transform=transform,
+                                         scale=self.scale_input)
         return emb.positional_encoding(
             x, transform=transform, scale=self.scale_input,
             min_deg=self.min_deg, max_deg=self.max_deg)
@@ -120,6 +128,7 @@ def unpack(params: Params, model: SDFModel):
 def init_params(gen: torch.Generator, model: SDFModel,
                 device="cpu") -> Params:
     """Xavier-normal weights, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) biases,
+    and the Gaussian embedding's B ~ N(0, std^2) where the model has one,
     drawn on the CPU from ``gen`` and moved to ``device``."""
     ws, bs = [], []
     for fi, fo in layer_shapes(model):
@@ -127,7 +136,12 @@ def init_params(gen: torch.Generator, model: SDFModel,
         ws.append(torch.randn((fi, fo), generator=gen) * std)
         bound = 1.0 / math.sqrt(fi)
         bs.append((torch.rand((fo,), generator=gen) * 2.0 - 1.0) * bound)
-    return _pack(model, ws, bs, device=device)
+    params = _pack(model, ws, bs, device=device)
+    if model.gauss_embed:
+        params["B"] = emb.init_gaussian_embedding(
+            gen, model.gauss_embed_std, (model.embedding_size - 3) // 2,
+            device=device)
+    return params
 
 
 def params_from_jax(tree, model: SDFModel, device="cpu") -> Params:
@@ -135,8 +149,13 @@ def params_from_jax(tree, model: SDFModel, device="cpu") -> Params:
     port's packed planes."""
     seq = [tree["in"], *tree["mid1"], tree["cat"], *tree["mid2"],
            tree["out"]]
-    return _pack(model, [np.array(p["w"], np.float32) for p in seq],
-                 [np.array(p["b"], np.float32) for p in seq], device=device)
+    params = _pack(model, [np.array(p["w"], np.float32) for p in seq],
+                   [np.array(p["b"], np.float32) for p in seq],
+                   device=device)
+    if "B" in tree:
+        params["B"] = torch.as_tensor(np.array(tree["B"], np.float32),
+                                      device=device)
+    return params
 
 
 def params_to_jax(params: Params, model: SDFModel):
@@ -149,9 +168,12 @@ def params_to_jax(params: Params, model: SDFModel):
     def d(i):
         return {"w": layers[i][0], "b": layers[i][1]}
 
-    return {"in": d(0), "mid1": [d(1 + i) for i in range(B)],
+    tree = {"in": d(0), "mid1": [d(1 + i) for i in range(B)],
             "cat": d(1 + B), "mid2": [d(2 + B + i) for i in range(B)],
             "out": d(2 + 2 * B)}
+    if "B" in params:
+        tree["B"] = params["B"].detach().cpu().numpy().copy()
+    return tree
 
 
 def copy_params(params: Params) -> Params:
@@ -168,7 +190,7 @@ def softplus_b100(x):
 def apply(params: Params, x, model: SDFModel, transform=None):
     """SDF value at world points x [..., 3] -> [...], float32."""
     layers = unpack(params, model)
-    pe = model.encode(x, transform=transform)
+    pe = model.encode(params, x, transform=transform)
     h = pe
     for l, (w, b) in enumerate(layers[:-1]):
         if l == model.cat_idx:

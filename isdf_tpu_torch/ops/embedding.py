@@ -1,12 +1,15 @@
-"""Icosahedron positional encoding of the SDF MLP input.
+"""Positional encodings of the SDF MLP input (isdf_tpu/ops/embedding.py).
 
-Project the scene-normalised, scaled xyz onto the 21 unit directions through
-the vertices and edge midpoints of half an icosahedron, multiply by 2^k
-frequency bands, take sin and the pi/2-phase-shifted sin (== cos), and
-concatenate the scaled coords (reference isdf/modules/embedding.py:25-111;
-isdf_tpu/ops/embedding.py). Embedding size 2*21*n_freqs + 3.
-
-The Gaussian random-Fourier-feature encoder is not ported yet.
+* Icosahedron PE: project the scene-normalised, scaled xyz onto the 21
+  unit directions through the vertices and edge midpoints of half an
+  icosahedron, multiply by 2^k frequency bands, take sin and the
+  pi/2-phase-shifted sin (== cos), and concatenate the scaled coords
+  (reference isdf/modules/embedding.py:25-111). Embedding size
+  2*21*n_freqs + 3.
+* Gaussian random-Fourier features: [scaled_xyz, sin(2 pi xs B),
+  cos(2 pi xs B)] with B ~ N(0, std^2) of shape [3, n_feats] (the
+  reference declares this option but its forward path is unimplemented;
+  isdf_tpu makes it work, and so does this copy).
 """
 
 from __future__ import annotations
@@ -73,3 +76,18 @@ def positional_encoding(x, transform=None, scale: float = 1.0,
     xb = (proj[..., None] * b).reshape(*proj.shape[:-1], -1)
     emb = torch.sin(torch.cat([xb, xb + 0.5 * np.pi], dim=-1))
     return torch.cat([xs, emb], dim=-1)
+
+
+def init_gaussian_embedding(gen: torch.Generator, std: float = 11.0,
+                            n_feats: int = 126, device="cpu"):
+    """Random Fourier feature matrix B ~ N(0, std^2) [3, n_feats], drawn
+    on the CPU from ``gen`` and moved to ``device``."""
+    return (std * torch.randn((3, n_feats), generator=gen)).to(device)
+
+
+def gaussian_encoding(x, B, transform=None, scale: float = 1.0):
+    """Gaussian RFF embedding [..., 3] -> [..., 3 + 2 n_feats]:
+    [scaled_xyz, sin(2 pi xs B), cos(2 pi xs B)], float32."""
+    xs = scale_input(x, transform=transform, scale=scale)
+    proj = 2.0 * np.pi * (xs @ B)
+    return torch.cat([xs, torch.sin(proj), torch.cos(proj)], dim=-1)

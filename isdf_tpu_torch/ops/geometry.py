@@ -72,6 +72,55 @@ def estimate_pointcloud_normals(points, d: int = 2):
     return n / n.norm(dim=-1, keepdim=True)
 
 
+def make_3D_grid(grid_range, dim: int, transform=None, scale=None,
+                 device="cpu"):
+    """Regular grid [dim, dim, dim, 3] over grid_range^3, scaled, then
+    mapped through ``transform`` (reference transform.py:273-304)."""
+    t = torch.linspace(grid_range[0], grid_range[1], dim,
+                       dtype=torch.float32, device=device)
+    grid = torch.stack(torch.meshgrid(t, t, t, indexing="ij"), dim=-1)
+    return transform_3D_grid(grid, transform=transform, scale=scale)
+
+
+def transform_3D_grid(grid_3d, transform=None, scale=None):
+    """grid * scale, then R (.) + t of a [4, 4] transform."""
+    if scale is not None:
+        grid_3d = grid_3d * scale
+    if transform is not None:
+        grid_3d = grid_3d @ transform[:3, :3].T + transform[:3, 3]
+    return grid_3d
+
+
+def exp_so3(w):
+    """SO(3) exponential map (Rodrigues) of [..., 3] -> [..., 3, 3], with
+    the Taylor forms below theta^2 = 1e-8."""
+    theta2 = (w * w).sum(-1)
+    small = theta2 < 1e-8
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    zeros = torch.zeros_like(w[..., 0])
+    K = torch.stack([
+        torch.stack([zeros, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], zeros, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], zeros], -1),
+    ], -2)
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2_safe)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def exp_se3(tw):
+    """SE(3) exponential of [..., 6] twists (rotation, translation) ->
+    [..., 4, 4], with first-order translation (small pose corrections)."""
+    T = torch.zeros(tw.shape[:-1] + (4, 4), dtype=tw.dtype, device=tw.device)
+    T[..., :3, :3] = exp_so3(tw[..., :3])
+    T[..., :3, 3] = tw[..., 3:]
+    T[..., 3, 3] = 1.0
+    return T
+
+
 # ---------------------------------------------------------------------------
 # host-side helpers (numpy)
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""Depth rendering from the SDF along sampled rays (isdf_tpu/ops/render.py
-in torch; reference isdf/modules/render.py): depth at the first sign
-crossing, z + sdf there."""
+"""Depth and normal rendering from the SDF along sampled rays
+(isdf_tpu/ops/render.py in torch; reference isdf/modules/render.py): depth
+at the first sign crossing, z + sdf there; normals from the spatial
+gradient at rendered depths."""
 
 from __future__ import annotations
 
 import torch
+
+from isdf_tpu_torch.ops.geometry import origin_dirs_W
 
 
 def sdf_render_depth(z_vals, sdf):
@@ -26,3 +29,22 @@ def sort_by_z(z_vals, *mats):
     order = torch.argsort(z_vals, dim=-1)
     return (torch.gather(z_vals, -1, order),
             *(torch.gather(m, -1, order) for m in mats))
+
+
+def render_normals_C(T_WC, render_depth, sdf_grad_fn, dirs_C):
+    """Camera-frame surface normals at rendered depths (reference
+    render.py:39-57). sdf_grad_fn: pc [N, 3] -> grad [N, 3]."""
+    origins, dirs_W = origin_dirs_W(T_WC, dirs_C)
+    pc = origins + dirs_W * render_depth[..., None]
+    grad = sdf_grad_fn(pc)
+    normals_W = -grad / (grad.norm(dim=-1, keepdim=True) + 1e-4)
+    R_CW = T_WC[..., :3, :3].transpose(-1, -2)
+    return (R_CW @ normals_W[..., None])[..., 0]
+
+
+def render_weighted(weights, vals, axis=-1, normalise: bool = False):
+    """Weighted-sum render (reference render.py:60-70)."""
+    out = (weights * vals).sum(dim=axis)
+    if normalise:
+        out = out / weights.shape[axis]
+    return out

@@ -1,31 +1,53 @@
 #!/usr/bin/env python
 """Training CLI of the port (isdf_tpu/train/train.py):
 
-    python -m isdf_tpu_torch.train.train --config cfg.json \
-        [--save_path DIR] [--max_steps N] [--max_time_s T] [--seed S] \
+    python -m isdf_tpu_torch.train.train --config cfg.json [-ni] [-hd] \
+        [--save_path DIR | --save] [--max_steps N] [--max_time_s T] \
+        [--seed S] [--grid_dim D] [--per_step] [--trace DIR] \
         [--sim_dt DT] [--set SECTION.KEY=VALUE] [--device cuda|cpu]
 
-Runs on the CUDA device unless ``--device cpu``. A config with
-eval.do_eval on a synthetic scene is scored against the scene's analytic
-SDF (mean |error| over fixed random points in the room); other evals,
-checkpoints, slices, meshes and pose refinement are not ported yet.
+Runs on the CUDA device unless ``--device cpu``. ``-ni`` is the batch
+(non-incremental) mode, ``--per_step`` the reference's one-step loop,
+``--trace`` writes a torch.profiler trace of the run. With eval.do_eval the
+reference protocol scores the visible region against the GT SDF into
+res.json ("rays"). Checkpoints (``--load_checkpoint``, save hooks), slices,
+meshes and pose refinement are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+from datetime import datetime
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="isdf_tpu_torch trainer")
     parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("-ni", "--no_incremental", action="store_false",
+                        dest="incremental",
+                        help="batch mode: train on the chosen views, no "
+                             "ingestion")
+    parser.add_argument("-hd", "--headless", action="store_true",
+                        help="accepted for reference-CLI parity (runs are "
+                             "headless regardless)")
     parser.add_argument("--save_path", type=str, default=None)
+    parser.add_argument("--save", action="store_true",
+                        help="save to results/isdf_tpu_torch/<timestamp>")
     parser.add_argument("--max_steps", type=int, default=None)
     parser.add_argument("--max_time_s", type=float, default=None,
                         help="stop after this much simulated time")
     parser.add_argument("--seed", type=int, default=1)
+    parser.add_argument("--load_checkpoint", type=str, default=None,
+                        help="not ported yet")
+    parser.add_argument("--grid_dim", type=int, default=200)
+    parser.add_argument("--per_step", action="store_true",
+                        help="reference-exact per-step loop (no bundling)")
+    parser.add_argument("--trace", type=str, default=None,
+                        help="write a torch.profiler trace to this "
+                             "directory")
     parser.add_argument("--sim_dt", type=float, default=None,
                         help="bill the simulated clock a FIXED dt seconds "
                              "per step instead of measured device time")
@@ -35,32 +57,39 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.load_checkpoint:
+        raise NotImplementedError(
+            "--load_checkpoint is not ported to isdf_tpu_torch yet")
 
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.utils.config import load_config
+    from isdf_tpu_torch.utils.profiling import device_trace
 
     cfg = load_config(args.config, overrides=args.overrides)
-    if args.save_path:
-        os.makedirs(args.save_path, exist_ok=True)
-        with open(os.path.join(args.save_path, "config.json"), "w") as f:
+    save_path = args.save_path
+    if args.save and save_path is None:
+        stamp = datetime.now().strftime("%m-%d-%y_%H-%M-%S")
+        save_path = os.path.join("results", "isdf_tpu_torch", stamp)
+    if save_path:
+        os.makedirs(save_path, exist_ok=True)
+        with open(os.path.join(save_path, "config.json"), "w") as f:
             with open(args.config) as src:
                 json.dump(json.load(src), f, indent=4)
 
-    trainer = Trainer(cfg, seed=args.seed, device=args.device)
+    trainer = Trainer(cfg, incremental=args.incremental,
+                      grid_dim=args.grid_dim, seed=args.seed,
+                      device=args.device)
     if args.sim_dt is not None:
         trainer._per_step_device_s = args.sim_dt
         trainer._bill_exact = True
-    eval_hook = None
-    if cfg.do_eval:
-        if not hasattr(trainer.dataset, "sdf_mae"):
-            raise NotImplementedError(
-                "eval.do_eval is ported for synthetic scenes only")
-        eval_hook = lambda tr: {"sdf_mae": tr.dataset.sdf_mae(tr.sdf_fn)}
-    res = train_loop(trainer, max_steps=args.max_steps,
-                     max_time_s=args.max_time_s, save_path=args.save_path,
-                     eval_hook=eval_hook,
-                     log_fn=lambda m: print(m, flush=True))
+    ctx = (device_trace(args.trace) if args.trace
+           else contextlib.nullcontext())
+    with ctx:
+        res = train_loop(trainer, max_steps=args.max_steps,
+                         max_time_s=args.max_time_s,
+                         bundle=not args.per_step, save_path=save_path,
+                         log_fn=lambda m: print(m, flush=True))
     print(f"done: {res.steps} steps in {res.wall_time:.1f}s wall "
           f"({res.tot_step_time:.1f}s simulated), "
           f"{len(res.kf_indices) + 1} keyframes", flush=True)

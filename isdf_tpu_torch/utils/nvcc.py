@@ -2,9 +2,10 @@
 
 Each source ``csrc/<name>.cu`` is compiled by nvcc for sm_90a into a shared
 library with a plain C interface, ``lib<name>_<hash>.so`` in a build
-directory that .gitignore lists. The hash covers the source and every
-shared header of csrc/, so an edited kernel is rebuilt and a built one is
-reused. ``load_all`` starts one nvcc per missing library at once and
+directory that .gitignore lists. The hash covers every source and header
+of csrc/ (a source may include another, as the ``*_f32.cu`` sources
+include their bf16 twins), so an edited kernel is rebuilt and a built one
+is reused. ``load_all`` starts one nvcc per missing library at once and
 waits for all of them; a failed build raises with nvcc's output.
 
 Every entry point of a library takes (ptrs, knobs, ints, stream): three
@@ -54,9 +55,8 @@ def sources_from(src_dir: str):
 
 
 def _target(src_dir: str, name: str) -> str:
-    h = hashlib.sha1()
-    for path in [os.path.join(src_dir, f"{name}.cu")] + sorted(
-            glob.glob(os.path.join(src_dir, "*.cuh"))):
+    h = hashlib.sha1(name.encode())
+    for path in sorted(glob.glob(os.path.join(src_dir, "*.cu*"))):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return os.path.join(build_dir(), f"lib{name}_{h.hexdigest()[:12]}.so")

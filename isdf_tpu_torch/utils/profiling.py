@@ -1,11 +1,30 @@
-"""Rolling step-time statistics (the reference GUI's 20-second compute
-balance readout, isdf_window.py:694-708)."""
+"""Tracing and rolling step-time statistics (isdf_tpu/utils/profiling.py):
+a torch.profiler trace context, and the reference GUI's 20-second compute
+balance readout (isdf_window.py:694-708)."""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from collections import deque
 from typing import Deque, Dict
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """torch.profiler over the block, the CPU and (where there is one) the
+    CUDA device; writes a Chrome trace, ``trace.json`` in ``log_dir``,
+    when the block ends. Yields the directory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StepTimer:

@@ -414,3 +414,110 @@ def test_profile_step_reads_idle_share_from_trace_intervals(tmp_path):
     ivs = P.kernel_intervals(str(path))
     assert [n for _, _, n in ivs] == ["a", "b", "a"]
     assert P.busy_us(ivs) == 20.0
+
+
+# the f32-product mode (tpu.mm_precision other than "default") against the
+# plain version with f32 products, at this file's size: both sum IEEE f32
+# products, in another order. About 10x the largest gap read on an H100:
+# sums 1.2e-7, per-point loss 2.2e-7, gradient blocks 6.2e-7 (K1) and
+# 5.3e-7 (K3), K2 2.1e-6 (PERF.md, section 6)
+TOL_F32_SUMS, TOL_F32_PLOSS, TOL_F32_GRAD, TOL_F32_RAW = 1.5e-6, 3e-6, \
+    1e-5, 3e-5
+
+
+def _f32_setup():
+    model, params, T, x = _setup("cuda")
+    return TM.SDFModel(mm_precision="highest"), params, T, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pc", "ray", "stream"])
+def test_f32_train_kernel_matches_plain_on_card(variant):
+    _need_card()
+    model, params, T, x = _f32_setup()
+    lk = K._loss_knobs(model, free_space_factor=5.0, **KW)
+    M, dxs, dproj2 = TM._pe_consts(model, T, device="cuda")
+    Tc = K.tangent_rows(model, dxs, dproj2)
+    name = f"K1-{variant}-f32"
+    n0 = dict(K.LAUNCHES)
+    if variant == "stream":
+        pe, _, dxs, dproj2 = TM._pe_factored(x["pts"], model, T)
+        op = K.make_train_op(model, **KW, pe_in_kernel=False)
+        out = op(params, pe, dxs, dproj2, x["bounds"], x["valid"],
+                 x["noise"], x["gt"], x["inv_count"])
+        kw = dict(bounds=x["bounds"], gt=x["gt"], pe=pe)
+        Tc = K.tangent_rows(model, dxs, dproj2)
+    else:
+        op = K.make_train_op(model, **KW, pc_bounds=variant == "pc")
+        out = op(*_args(params, T, x, variant == "pc"))
+        kw = (dict(surf=x["surf"], surf_valid=x["surf_valid"], zd=x["zd"],
+                   normals_pt=x["normals_pt"], is_surf=x["is_surf"])
+              if variant == "pc" else dict(bounds=x["bounds"], gt=x["gt"]))
+    assert {k: K.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: int(k == name) for k in n0}
+    ks, kp, (kdw, kdb) = out
+    ps, pp, (pdw, pdb) = K.train_op_plain(
+        params, model, lk, M, Tc, x["pts"], x["valid"], x["noise"],
+        x["inv_count"], mm_dtype=torch.float32, **kw)
+    torch.cuda.synchronize()
+    sums_rel = ((ks - ps).abs() / ps.abs()).max().item()
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, kdw, kdb),
+                                       _blocks(model, pdw, pdb))]
+    print(f"{name}: sums {sums_rel:.3e} ploss {_rel(kp, pp):.3e} "
+          f"blocks {max(errs):.3e}")
+    assert sums_rel <= TOL_F32_SUMS
+    assert _rel(kp, pp) <= TOL_F32_PLOSS
+    assert max(errs) <= TOL_F32_GRAD, f"gradient blocks: {errs}"
+    again = op(*_args(params, T, x, variant == "pc")) if variant != \
+        "stream" else op(params, pe, dxs, dproj2, x["bounds"], x["valid"],
+                         x["noise"], x["gt"], x["inv_count"])
+    assert torch.equal(again[2][0], kdw) and torch.equal(again[1], kp)
+
+
+@pytest.mark.cuda
+def test_f32_reverse_fused_kernels_match_plain_on_card():
+    _need_card()
+    model, params, T, x = _f32_setup()
+    args = TM._pe_factored(x["pts"], model, T)
+    out = {}
+    for kind, op in (("kernel", CRF.make_cuda_reverse_fused(model)),
+                     ("plain", make_reverse_fused_mlp(model))):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        raw, graw = op(p, *args)
+        out[kind] = (p, raw, graw)
+    (pk, rk, gk), (pp, rp, gp) = out["kernel"], out["plain"]
+    fwd = [_rel(rk, rp)] + [_rel(gk[:, c], gp[:, c]) for c in range(3)]
+    print(f"K2-f32: raw, graw {fwd}")
+    assert max(fwd) <= TOL_F32_RAW
+    draw, dgraw = torch.autograd.grad(_rf_loss(rk, gk), (rk, gk),
+                                      retain_graph=True)
+    n0 = dict(CRF.LAUNCHES)
+    kg = torch.autograd.grad((rk, gk), (pk["Wp"], pk["bp"]), (draw, dgraw))
+    assert CRF.LAUNCHES["K3-f32"] == n0["K3-f32"] + 1
+    assert CRF.LAUNCHES["K3"] == n0["K3"]
+    pg = torch.autograd.grad((rp, gp), (pp["Wp"], pp["bp"]), (draw, dgraw))
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, *kg),
+                                       _blocks(model, *pg))]
+    print(f"K3-f32: blocks {max(errs):.3e}")
+    assert max(errs) <= TOL_F32_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+def test_f32_trainer_launches_the_f32_kernel_once_per_step_on_card():
+    _need_card()
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import Config
+    cam = Config().camera.__class__(160, 120, 100.0, 100.0, 79.5, 59.5)
+    cfg = Config().replace(dataset_format="synthetic", bounds_method="pc",
+                           kf_buffer_size=16, camera=cam,
+                           mm_precision="highest")
+    tr = Trainer(cfg)
+    assert tr.fns.kernel_sources == ["train_mlp_f32"]
+    tr._per_step_device_s = 1.0 / 300
+    tr._bill_exact = True
+    n0 = dict(K.LAUNCHES)
+    res = train_loop(tr, max_steps=40)
+    assert {k: K.LAUNCHES[k] - n0[k] for k in n0} == {
+        k: 40 if k == "K1-pc-f32" else 0 for k in n0}
+    assert res.steps == 40

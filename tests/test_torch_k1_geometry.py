@@ -70,6 +70,69 @@ def test_scratch_follows_the_geometry():
     assert {k: tuple(v.shape) for k, v in scratch.items()} == sh
     assert set(scratch) <= set(K.ARG_PTRS)
     for k, v in scratch.items():
-        want = torch.bfloat16 if k in K.BF16_SCRATCH else torch.float32
+        want = (torch.bfloat16 if k in K.OPERAND_SCRATCH
+                else torch.float32)
         assert v.dtype == want, k
     assert len(K.ARG_PTRS) == 37  # N_PTRS of csrc/mlp_tile.cuh
+
+
+# the H100's shared memory a block can use (227 KB, dynamic and static)
+SMEM_BLOCK_MAX = 232448
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+def test_mode_geometry_and_shared_memory(f32):
+    """The product mode's operand dtype, scratch dtypes and shared memory:
+    the geometry the wrappers allocate by is the layout of
+    csrc/mlp_tile.cuh (SMEM_DYN, SMEM_DW), within a block's limit, and the
+    f32 mode changes only the operand planes and the shared memory."""
+    import torch
+    model = SDFModel()
+    g = K.k1_geometry(27000, model.n_layers, f32=f32)
+    op = torch.float32 if f32 else torch.bfloat16
+    assert g["op_dtype"] == op
+    for k, dt in g["dtypes"].items():
+        assert dt == (op if k in K.OPERAND_SCRATCH else torch.float32), k
+    esz = 4 if f32 else 2
+    assert g["smem"] == (2 * K.TM * g["ldx"] + g["nstage"] * K.HID
+                         * (g["ks"] + 8)) * esz
+    assert g["smem_dw"] == g["dw_stages"] * 4 * K.DW_SLAB * 136 * esz
+    assert g["smem"] + g["smem_static"] <= SMEM_BLOCK_MAX
+    assert g["smem_dw"] <= SMEM_BLOCK_MAX
+    # the f32 tile of the row reductions (64 x 260 f32) aliases X and X2
+    assert K.TM * 260 * 4 <= 2 * K.TM * g["ldx"] * esz
+    # 16-byte cp.async rows and float4 / ldmatrix rows stay aligned
+    assert (g["ldx"] * esz) % 16 == 0 and ((g["ks"] + 8) * esz) % 16 == 0
+    base = K.k1_geometry(27000, model.n_layers)
+    assert {k: g[k] for k in ("NP", "n_tiles", "S", "rps", "shapes")} == \
+        {k: base[k] for k in ("NP", "n_tiles", "S", "rps", "shapes")}
+    if f32:
+        assert g["blocks_per_sm"] == 1 and g["smem"] == 215040
+    else:  # two blocks share an SM's 228 KB
+        assert g["blocks_per_sm"] == 2 and g["smem"] == 108544
+        assert 2 * (g["smem"] + g["smem_static"] + 1024) <= 233472
+
+
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+def test_scratch_and_weights_follow_the_product_mode(precision,
+                                                      monkeypatch):
+    """vjp_scratch and weight_args give the kernels their mode's operand
+    type: bf16 weights and planes for "default", f32 for any other
+    mm_precision (isdf_tpu's mm_dtype = float32)."""
+    import torch
+    model = SDFModel(mm_precision=precision)
+    f32 = precision != "default"
+    assert K.is_f32(model) == f32
+    scratch = K.vjp_scratch(model, 100, "cpu")
+    for k in K.OPERAND_SCRATCH:
+        assert scratch[k].dtype == (torch.float32 if f32 else torch.bfloat16)
+    L = model.n_layers
+    Wp = torch.randn(L, 2 * K.HID, K.HID)
+    bp = torch.randn(L, K.HID)
+    # CPU tensors: the device check is the only one that would refuse
+    monkeypatch.setattr(K, "_check", lambda *a, **k: None)
+    w = K.weight_args({"Wp": Wp, "bp": bp}, model)
+    assert w["W"].dtype == (torch.float32 if f32 else torch.bfloat16)
+    if f32:
+        assert w["W"] is Wp
+    assert torch.equal(w["w_out"], Wp[L - 1, :K.HID, 0])

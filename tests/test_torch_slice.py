@@ -236,7 +236,8 @@ PORT_MODULES = [
     "isdf_tpu_torch.engine.trainer", "isdf_tpu_torch.engine.loop",
     "isdf_tpu_torch.data.frame_store", "isdf_tpu_torch.data.synthetic",
     "isdf_tpu_torch.data.datasets", "isdf_tpu_torch.train.train",
-    "isdf_tpu_torch.train.profile_step",
+    "isdf_tpu_torch.train.profile_step", "isdf_tpu_torch.eval.metrics",
+    "isdf_tpu_torch.eval.protocol", "isdf_tpu_torch.ops.frustum",
 ]
 
 
@@ -300,25 +301,22 @@ def test_tpu_only_knobs_are_inert(monkeypatch):
 
 
 def test_unported_config_parts_raise():
-    from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     with pytest.raises(NotImplementedError, match="refine_poses"):
         Trainer(_small(TConfig).replace(refine_poses=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Gaussian"):
-        Trainer(_small(TConfig).replace(gauss_embed=True), device="cpu")
     with pytest.raises(NotImplementedError, match="data_parallel"):
         Trainer(_small(TConfig).replace(data_parallel=2), device="cpu")
     with pytest.raises(NotImplementedError, match="replicaCAD"):
         Trainer(_small(TConfig).replace(dataset_format="replicaCAD"),
                 device="cpu")
-    tr = Trainer(_small(TConfig).replace(do_eval=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="eval_hook"):
-        train_loop(tr, max_steps=1)
+    with pytest.raises(NotImplementedError, match="save_checkpoints"):
+        Trainer(_small(TConfig).replace(save_checkpoints=True),
+                device="cpu")
 
 
 def test_cli_runs_synthetic_config_on_cpu(tmp_path):
     """The CLI on the shipped synthetic.json, cut to a tiny camera and
-    width; do_eval scores against the analytic SDF."""
+    width; do_eval runs the reference protocol into res.json ("rays")."""
     from isdf_tpu_torch.train.train import main
     cfg = os.path.join(ROOT, "isdf_tpu_torch", "train", "configs",
                        "synthetic.json")
@@ -331,6 +329,6 @@ def test_cli_runs_synthetic_config_on_cpu(tmp_path):
                 "--set", "model.hidden_feature_size=32",
                 "--set", "tpu.kf_buffer_size=8"])
     assert res.steps == 30
-    assert res.sdf_evals and all(np.isfinite(v["sdf_mae"])
+    assert res.sdf_evals and all(np.isfinite(v["rays"]["av_l1"])
                                  for v in res.sdf_evals.values())
     assert os.path.exists(tmp_path / "res.json")

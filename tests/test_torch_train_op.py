@@ -140,8 +140,8 @@ def test_train_op_matches_pallas_kernel(variant, loss_type, orien):
     j, t, tm = _run_both(variant == "pc", b, loss_type=loss_type,
                          orien_loss=orien)
     _assert_close(j, t, tm)
-    assert K.LAUNCHES == {"K1-pc": 0, "K1-ray": 0,
-                          "K1-stream": 0}  # CPU: no kernel
+    assert set(K.LAUNCHES) >= {"K1-pc", "K1-ray", "K1-stream"}
+    assert all(v == 0 for v in K.LAUNCHES.values())  # CPU: no kernel
 
 
 def test_train_op_pc_with_surface_point_ties():

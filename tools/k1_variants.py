@@ -33,8 +33,8 @@ import torch
 CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "isdf_tpu_torch", "train", "configs", "synthetic.json")
 # name -> [(file, text, replacement)]
-ONE_BLOCK = ("train_mlp.cu", "__launch_bounds__(NTHR, 2) k_train",
-             "__launch_bounds__(NTHR, 1) k_train")
+ONE_BLOCK = ("train_mlp.cu", "__launch_bounds__(NTHR, MIN_BLOCKS)\n    k_train",
+             "__launch_bounds__(NTHR, 1)\n    k_train")
 # The stage boundaries of k_train_tile: (file, first line of the stage),
 # and the end of tile_param_vjp, which closes the last stage.
 STAGE_STARTS = (

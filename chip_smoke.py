@@ -52,7 +52,23 @@ Phases (any failure is an uncaught exception and a non-zero exit):
   6. run the CLI (train/train.py) on the shipped config: as shipped, its
      res.json must hold the protocol's "rays" entries; then batch mode with
      the per-step loop (-ni --per_step);
-  7. print the card, the kernels' JSON line, and the result line.
+  7. checkpoints, meshing, serving and pose tracking at full width: the CLI
+     on the shipped config with save.save_checkpoints, save.save_meshes
+     and eval.mesh_eval (checkpoints and .ply meshes at every mark, mesh
+     accuracy and completion falling from the first timed mark to the
+     last); a fresh trainer from the last checkpoint (sdf_fn bit-equal to
+     the live trainer's at that save, on 20,000 points; then 50 resumed
+     steps); the query service (serve.py) from that checkpoint, its HTTP
+     /sdf and /grad held to the trainer's sdf_fn and grad_fn and timed at
+     65,536 points a request; the sparse 200^3 grid's mesh equal to the
+     dense grid's, both through the native marching-tets library (which
+     must build); then pose tracking: isdf_tpu's anchored tracking test at
+     full width (a misposed frame against a map trained at the true pose:
+     one burst must cut its pose error below 0.7x), and the trainer under
+     random-walk pose noise with and without model.refine_poses (bursts on
+     ingested frames, billed by CUDA events; the arena pose errors
+     printed). Each run counts K1-pc once a step;
+  8. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -922,6 +938,357 @@ def run_cli(torch, args, max_steps, sim_dt):
     return res, saved, launches
 
 
+def _post(port, route, obj):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{route}", data=json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        assert r.status == 200, f"{route}: HTTP {r.status}"
+        return json.loads(r.read())
+
+
+# the persistence phase: the CLI with its save hooks and the mesh eval;
+# marks every SAVE_PERIOD sim-seconds (the shipped 10 s is longer than the
+# run); timed evals (the protocol's and the mesh's) every 0.2 s instead of
+# the shipped 1 s, with bundles of at most 20 steps, so that the first
+# falls on a map of 60 steps, and at the end
+PERSIST_STEPS = 900
+GRID_DIM = 200           # the CLI's default meshing grid
+SAVE_PERIOD = 1.0
+PERSIST_SET = ["save.save_checkpoints=1", "save.save_meshes=1",
+               "eval.mesh_eval=1", f"save.save_period={SAVE_PERIOD}",
+               "eval.eval_freq_s=0.2", "tpu.steps_per_bundle=20"]
+RESUMED_STEPS = 50
+QUERY_POINTS = 65536     # points a request in the service's readings
+TOL_HTTP_SDF = 1e-5      # service vs trainer: the same f32 MLP in other
+TOL_HTTP_GRAD = 1e-4     # chunks (cuBLAS may pick other kernels)
+
+
+def persistence_phase(torch):
+    """Checkpoints, meshing, the mesh eval and the query service at full
+    width: the CLI on the shipped config with the save hooks and
+    eval.mesh_eval; a fresh trainer from its last checkpoint (sdf_fn
+    bit-equal to the live trainer's when it saved, then RESUMED_STEPS
+    steps through train_loop); the query service from that checkpoint over
+    HTTP; the sparse 200^3 mesh against the dense one, through the native
+    marching-tets library. Returns its readings; K1-pc launch counts of
+    the CLI and the resumed run are checked here."""
+    import numpy as np
+
+    from isdf_tpu_torch import serve
+    from isdf_tpu_torch.engine import loop as LOOP
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.models import sdf_mlp as M
+    from isdf_tpu_torch.train.train import main as cli
+    from isdf_tpu_torch.utils import checkpoint as CK
+    from isdf_tpu_torch.utils import mesh3d, native
+    from isdf_tpu_torch.utils.config import load_config
+
+    out = {}
+    live, saved, save_s = {}, {}, []
+    orig_loop, orig_save = LOOP.train_loop, CK.save_checkpoint
+
+    def loop_spy(trainer, **kw):
+        live["tr"] = trainer
+        return orig_loop(trainer, **kw)
+
+    def save_spy(path, trainer, step=0):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig_save(path, trainer, step=step)
+        save_s.append(time.perf_counter() - t)
+        saved[path] = (M.copy_params(trainer.params),
+                       trainer.transform_dev.clone())
+
+    assert native.load("marching_tets") is not None, \
+        "the native marching-tets library did not build"
+    n_native = native.CALLS["marching_tets"]
+    LOOP.train_loop, CK.save_checkpoint = loop_spy, save_spy
+    d = tempfile.mkdtemp(prefix="persist_")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = cli(["--config", CONFIG, "--save_path", d, "--max_steps",
+                   str(PERSIST_STEPS), "--sim_dt", str(1.0 / 300),
+                   "--grid_dim", str(GRID_DIM),
+                   *[a for kv in PERSIST_SET for a in ("--set", kv)]])
+        torch.cuda.synchronize()
+        out["cli_wall_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        assert launches["K1-pc"] == res.steps == PERSIST_STEPS, \
+            f"persistence cli: K1-pc {launches['K1-pc']} in {res.steps}"
+        assert all(v == 0 for k, v in launches.items() if k != "K1-pc")
+    finally:
+        LOOP.train_loop, CK.save_checkpoint = orig_loop, orig_save
+    try:
+        tr = live["tr"]
+        cks = sorted(os.listdir(os.path.join(d, "checkpoints")))
+        meshes = sorted(os.listdir(os.path.join(d, "meshes")))
+        with open(os.path.join(d, "res.json")) as f:
+            res_json = json.load(f)
+        print(f"persistence cli: {res.steps} steps, {res.tot_step_time:.3f} "
+              f"s simulated, checkpoints {cks}, meshes {meshes}, mesh_eval "
+              f"{json.dumps(res_json.get('mesh_eval'))}", flush=True)
+        n_marks = sum(1 for k in range(1, 1000)
+                      if res.tot_step_time > k * SAVE_PERIOD)
+        assert len(cks) == n_marks >= 2, "checkpoints missing"
+        assert len(meshes) == n_marks, "meshes missing"
+        for m in meshes:
+            v, fc = mesh3d.read_ply(os.path.join(d, "meshes", m))
+            assert len(fc) > 1000 and np.isfinite(v).all(), f"mesh {m}"
+        assert native.CALLS["marching_tets"] > n_native, \
+            "meshing did not run the native marching tets"
+        ev = [res_json["mesh_eval"][k] for k in
+              sorted(res_json["mesh_eval"], key=int)]
+        assert len(ev) >= 2, "too few mesh evals"
+        out["mesh_eval"] = ev
+        assert ev[-1]["acc"] < ev[0]["acc"], "mesh accuracy did not fall"
+        assert ev[-1]["comp"] < ev[0]["comp"], \
+            "mesh completion did not fall"
+        out["ckpt_save_s"] = save_s
+        out["ckpt_mb"] = os.path.getsize(os.path.join(
+            d, "checkpoints", cks[-1])) / 1e6
+
+        # ---- a fresh trainer from the last checkpoint ----
+        last = os.path.join(d, "checkpoints", cks[-1])
+        cfg = load_config(CONFIG, overrides=PERSIST_SET)
+        tr2 = Trainer(cfg, seed=7, grid_dim=GRID_DIM)
+        tr2._per_step_device_s, tr2._bill_exact = 1.0 / 300, True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = tr2.load_checkpoint(last)
+        torch.cuda.synchronize()
+        out["ckpt_load_s"] = time.perf_counter() - t0
+        assert "opt_state_reinitialised" not in meta
+        g = torch.Generator(device="cuda").manual_seed(3)
+        lo = torch.as_tensor(tr2.bounds_transform_np[:3, 3], device="cuda")
+        half = torch.as_tensor(tr2.scene_extents_np / 2, device="cuda")
+        pts = lo + (torch.rand((20000, 3), generator=g, device="cuda")
+                    * 2 - 1) * half
+        params_then, tf_then = saved[last]
+        now = (tr.params, tr.transform_dev)
+        tr.params, tr.transform_dev = params_then, tf_then
+        try:
+            want = tr.sdf_fn(pts)
+        finally:
+            tr.params, tr.transform_dev = now
+        got = tr2.sdf_fn(pts)
+        assert np.array_equal(got, want), \
+            "the loaded trainer's sdf_fn differs from the live one's"
+        print(f"checkpoint: {cks[-1]} ({out['ckpt_mb']:.1f} MB) saved in "
+              f"{save_s[-1]:.3f} s, loaded in {out['ckpt_load_s']:.3f} s; "
+              "sdf_fn bit-equal to the live trainer's on 20,000 points",
+              flush=True)
+
+        # ---- the query service from the checkpoint ----
+        eng = serve.SDFQueryEngine.from_checkpoint(last)
+        srv = serve.SDFQueryServer(eng, port=0).start()
+        try:
+            p = pts.cpu().numpy()
+            r_sdf = np.asarray(_post(srv.port, "/sdf",
+                                     {"points": p.tolist()})["sdf"])
+            r_grad = np.asarray(_post(srv.port, "/grad",
+                                      {"points": p.tolist()})["grad"])
+            e_sdf = np.abs(r_sdf - got).max()
+            e_grad = np.abs(r_grad - tr2.grad_fn(p)).max()
+            print(f"service: /sdf max |http - trainer.sdf_fn| {e_sdf:.3e} "
+                  f"(tol {TOL_HTTP_SDF}), /grad {e_grad:.3e} (tol "
+                  f"{TOL_HTTP_GRAD}); healthz {_healthz(srv.port)}",
+                  flush=True)
+            assert e_sdf <= TOL_HTTP_SDF and e_grad <= TOL_HTTP_GRAD
+            q = (lo + (torch.rand((QUERY_POINTS, 3), generator=g,
+                                  device="cuda") * 2 - 1) * half).cpu()
+            body = {"points": q.numpy().tolist()}
+            for route in ("/sdf", "/grad"):
+                _post(srv.port, route, body)                  # warm
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    _post(srv.port, route, body)
+                dt = (time.perf_counter() - t0) / 3
+                out[f"http{route[1:]}_pts_per_s"] = QUERY_POINTS / dt
+                fn = eng.sdf if route == "/sdf" else eng.grad
+                fn(q.numpy())
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn(q.numpy())
+                out[f"engine{route[1:]}_pts_per_s"] = (
+                    QUERY_POINTS * 3 / (time.perf_counter() - t0))
+        finally:
+            srv.stop()
+
+        # ---- the sparse and the dense 200^3 grids, meshed ----
+        tr2.get_sdf_grid_sparse()                                # warm
+        t0 = time.perf_counter()
+        sparse, frac = tr2.get_sdf_grid_sparse()
+        out["grid_sparse_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = tr2.get_sdf_grid()
+        out["grid_dense_s"] = time.perf_counter() - t0
+        out["grid_fraction_evaluated"] = frac
+        n0 = native.CALLS["marching_tets"]
+        t0 = time.perf_counter()
+        v_s, f_s = mesh3d.marching_tetrahedra(sparse)
+        out["marching_tets_s"] = time.perf_counter() - t0
+        v_d, f_d = mesh3d.marching_tetrahedra(dense)
+        assert native.CALLS["marching_tets"] == n0 + 2
+        assert len(f_d) > 1000 and np.array_equal(f_s, f_d), \
+            "the sparse grid's mesh differs from the dense grid's"
+        assert np.abs(v_s - v_d).max() <= 1e-5
+        t0 = time.perf_counter()
+        tr2.mesh_rec()
+        out["mesh_rec_s"] = time.perf_counter() - t0
+        print(f"meshing at {tr2.grid_dim}^3: sparse grid "
+              f"{out['grid_sparse_s']:.3f} s ({frac:.3f} of the points), "
+              f"dense {out['grid_dense_s']:.3f} s, marching tets "
+              f"{out['marching_tets_s']:.3f} s (native), mesh_rec "
+              f"{out['mesh_rec_s']:.3f} s; {len(f_s)} faces, equal meshes",
+              flush=True)
+
+        # ---- the resumed run ----
+        tr = None
+        live.clear()
+        saved.clear()
+        reset_launches()
+        r2 = LOOP.train_loop(tr2, max_steps=RESUMED_STEPS)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches["K1-pc"] == r2.steps == RESUMED_STEPS, \
+            f"resumed run: K1-pc {launches['K1-pc']} in {r2.steps} steps"
+        assert np.isfinite(r2.losses_last["total_loss"])
+        assert tr2.steps_taken == meta["steps_taken"] + RESUMED_STEPS
+        print(f"resumed run: {r2.steps} steps from step "
+              f"{meta['steps_taken']}, loss "
+              f"{r2.losses_last['total_loss']:.5f}, launches {launches}",
+              flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _healthz(port):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=60) as r:
+        info = json.loads(r.read())
+    return {k: info[k] for k in ("param_count", "device", "step")}
+
+
+POSE_STEPS = 1200
+POSE_SET = ["dataset.pose_noise_std=0.006", "dataset.pose_noise_mode=walk"]
+# the anchored tracking test: isdf_tpu's tests/test_engine.py:284-336 at
+# full width (a map trained on frame 0 at its true pose, frame 1 with iid
+# pose noise of std 0.03, one 60-iteration burst)
+ANCHOR_SET = ["dataset.pose_noise_std=0.03", "dataset.pose_noise_mode=iid",
+              "model.refine_poses=1", "pose_refine.min_rel_improve=0.05"]
+ANCHOR_GAIN = 0.7        # the refined error must be below 0.7 x the first
+
+
+def pose_errors(trainer):
+    """Per arena row: (frame id, translation error in metres, rotation
+    error in degrees) of its pose against the dataset's GT pose."""
+    import numpy as np
+    n = trainer.buffer.count
+    T = trainer.buffer.T_WC[:n].cpu().numpy().astype(np.float64)
+    fids = trainer.buffer.frame_id[:n].cpu().numpy()
+    out = []
+    for i, f in enumerate(fids):
+        G = trainer.dataset[int(f)]["T_gt"].astype(np.float64)
+        c = (np.trace(T[i, :3, :3].T @ G[:3, :3]) - 1.0) / 2.0
+        out.append((int(f), float(np.linalg.norm(T[i, :3, 3] - G[:3, 3])),
+                    float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))))
+    return out
+
+
+def pose_phase(torch):
+    """Pose tracking on the card at full width. (1) The anchored test: a
+    map trained 450 steps on frame 0 at its true pose, frame 1 ingested at
+    a pose with iid noise, one 60-iteration burst folded into the arena:
+    frame 1's pose error must fall below ANCHOR_GAIN of its first value.
+    (2) The trainer under random-walk pose noise with and without
+    model.refine_poses, POSE_STEPS steps each through train_loop with the
+    bursts billed by their CUDA events: bursts run on ingested frames,
+    K1-pc once a step; the arena pose errors of both runs are readings
+    (under walk noise the map drifts with the frames, and the absolute
+    error moves within its run-to-run spread either way). Returns the
+    readings."""
+    import dataclasses
+
+    import numpy as np
+
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import load_config
+
+    out = {}
+    tr = Trainer(load_config(CONFIG, overrides=ANCHOR_SET), seed=0)
+    ds = tr.dataset
+    tr.last_is_keyframe = True
+    tr.add_frame(dataclasses.replace(tr.get_data([0])[0], T_WC=ds.poses[0]))
+    for _ in range(15):
+        tr.run_steps(30)
+    tr.last_is_keyframe = True
+    tr.add_frame(tr.get_data([1])[0])
+    err0 = float(np.abs(tr.buffer.T_WC[1].cpu().numpy() - ds.poses[1]).max())
+    tr.refine_poses_step(n_steps=60)
+    tr.apply_pose_corrections()
+    err1 = float(np.abs(tr.buffer.T_WC[1].cpu().numpy() - ds.poses[1]).max())
+    out["anchored"] = dict(err_before=err0, err_after=err1,
+                           burst_ms_60_iters=1e3 * tr._last_burst_s)
+    print(f"pose [anchored]: frame 1's pose error {err0:.4f} -> {err1:.4f} "
+          f"(max abs entry of T_WC - T_gt; must fall below {ANCHOR_GAIN} x) "
+          f"in one 60-iteration burst of {1e3 * tr._last_burst_s:.1f} ms",
+          flush=True)
+    assert np.isfinite(err1) and err1 < ANCHOR_GAIN * err0, \
+        "the anchored pose burst did not reduce the pose error"
+    assert float(tr.pose_state.twists.abs().max()) == 0.0
+    del tr
+    torch.cuda.empty_cache()
+
+    for refine in (0, 1):
+        cfg = load_config(CONFIG, overrides=POSE_SET + [
+            f"model.refine_poses={refine}"])
+        tr = Trainer(cfg, seed=1)
+        tr._per_step_device_s, tr._bill_exact = 1.0 / 300, True
+        bursts, folds = [], []
+        if refine:
+            step = tr.refine_poses_step
+
+            def timed(*a, **k):
+                r = step(*a, **k)
+                bursts.append(tr._last_burst_s)
+                folds.append(tr._last_burst_rel_improve
+                             >= tr.cfg.pose_min_rel_improve)
+                return r
+
+            tr.refine_poses_step = timed
+        reset_launches()
+        res = train_loop(tr, max_steps=POSE_STEPS)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches["K1-pc"] == res.steps == POSE_STEPS, \
+            f"pose run: K1-pc {launches['K1-pc']} in {res.steps} steps"
+        assert all(v == 0 for k, v in launches.items() if k != "K1-pc")
+        errs = pose_errors(tr)
+        assert all(np.isfinite(e[1]) for e in errs)
+        key = "refine" if refine else "no_refine"
+        out[key] = dict(mean_err_m=sum(e[1] for e in errs) / len(errs),
+                        max_err_m=max(e[1] for e in errs),
+                        mean_rot_deg=sum(e[2] for e in errs) / len(errs),
+                        rows=errs, keyframes=tr.buffer.count,
+                        bursts=len(bursts), folded=sum(folds),
+                        loss_last=res.losses_last["total_loss"])
+        if refine:
+            assert bursts, "no pose burst ran"
+            assert float(tr.pose_state.twists.abs().max()) == 0.0
+            out[key]["burst_ms_mean"] = 1e3 * sum(bursts) / len(bursts)
+            out[key]["burst_ms_max"] = 1e3 * max(bursts)
+        print(f"pose run [{key}]: {json.dumps(out[key])}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
 F32_SET = "tpu.mm_precision=highest"
 # (label, overrides, kernels launched once a step, steps)
 TRAINER_PATHS = (
@@ -1039,7 +1406,13 @@ def main():
     assert len(res.kf_indices) + 1 == 20, "cli -ni: not the 20 views"
     assert protocol_entries(entries), "cli -ni: no protocol entries"
 
-    # ---- phase 7: report ----
+    # ---- phase 7: checkpoints, meshing, the mesh eval, the query
+    # service, then pose tracking ----
+    readings = persistence_phase(torch)
+    readings["pose"] = pose_phase(torch)
+    print(f"readings: {json.dumps(readings)}", flush=True)
+
+    # ---- phase 8: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

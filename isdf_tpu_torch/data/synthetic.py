@@ -197,6 +197,29 @@ class SyntheticDataset:
         T[:3, 3] = self.scene.center
         return T, self.scene.extents.copy()
 
+    def gt_mesh(self, dim: int = 128):
+        """(vertices, faces) of the analytic scene's zero level set:
+        marching tetrahedra over the exact SDF on a dim^3 grid 10 cm beyond
+        the room (the mesh eval's GT; real datasets load
+        gt_sdf_dir/mesh.obj, reference trainer.py:207). Built once per
+        dim: every timed mesh eval reads it."""
+        from isdf_tpu_torch.utils.mesh3d import marching_tetrahedra
+
+        cache = self.__dict__.setdefault("_gt_meshes", {})
+        if dim in cache:
+            return cache[dim]
+        half = self.scene.extents / 2.0 + 0.1
+        lo = self.scene.center - half
+        axes = [np.linspace(lo[a], lo[a] + 2 * half[a], dim,
+                            dtype=np.float32) for a in range(3)]
+        pts = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+        sdf = self.scene.sdf_np(pts.reshape(-1, 3)).reshape(dim, dim, dim)
+        verts_idx, faces = marching_tetrahedra(sdf, level=0.0)
+        spacing = 2 * half / (dim - 1)
+        verts = lo[None, :] + verts_idx * spacing[None, :]
+        cache[dim] = (verts.astype(np.float32), faces)
+        return cache[dim]
+
     def sdf_mae(self, sdf_fn, n: int = 20000, seed: int = 0) -> float:
         """Mean |sdf_fn - analytic SDF| over ``n`` points drawn uniformly
         (numpy, fixed seed) in the room box inset by 5 cm: a quick check of

@@ -18,9 +18,12 @@ measured time unless ``_bill_exact`` pins the clock exactly (replays).
 keyframes at start and nothing is ingested later (reference
 trainer.py:514-528).
 
-Not ported yet: the mesh and voxblox evals, meshing, visualisation,
-checkpoints, pose refinement, data parallelism and GT SDF grids from
-disk; a config that asks for them raises.
+Meshing (``get_sdf_grid_sparse``, ``mesh_rec``, ``write_mesh``), the mesh,
+fixed-point (voxblox-comparable), object and trajectory evals, checkpoints
+(utils/checkpoint.py, isdf_tpu's .npz format) and pose refinement
+(engine/pose.py, ``model.refine_poses``) run as in isdf_tpu. Not ported yet:
+slices (save.save_slices), visualisation, data parallelism and GT SDF grids
+or meshes from disk; a config that asks for them raises.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from isdf_tpu_torch.data.frame_store import FrameData, FrameStore
 from isdf_tpu_torch.engine import buffer as BUF
+from isdf_tpu_torch.engine import pose as P
 from isdf_tpu_torch.engine.step import StepFunctions, step_seed
 from isdf_tpu_torch.models import fused_adamw
 from isdf_tpu_torch.models import sdf_mlp as M
@@ -48,14 +52,10 @@ from isdf_tpu_torch.utils.profiling import StepTimer
 def check_supported(cfg: Config):
     """Raise on the parts of a config this port does not run yet."""
     missing = []
-    if cfg.refine_poses:
-        missing.append("model.refine_poses (pose refinement)")
     if cfg.data_parallel > 1:
         missing.append("tpu.data_parallel > 1")
-    if cfg.mesh_eval or cfg.do_vox_comparison:
-        missing.append("eval.mesh_eval / eval.do_vox_comparison")
-    if cfg.save_checkpoints or cfg.save_slices or cfg.save_meshes:
-        missing.append("save.save_checkpoints / save_slices / save_meshes")
+    if cfg.save_slices:
+        missing.append("save.save_slices")
     if missing:
         raise NotImplementedError(
             "not ported to isdf_tpu_torch yet: " + ", ".join(missing))
@@ -89,7 +89,8 @@ class Trainer:
 
         # ---- scene frame: the PE sees points in the unit-box frame
         # (reference trainer.py:103-155) ----
-        if hasattr(dataset, "scene_bounds"):
+        self.gt_scene = hasattr(dataset, "scene_bounds")
+        if self.gt_scene:
             T, extents = dataset.scene_bounds()
             self.set_scene_properties(np.asarray(T), np.asarray(extents))
         elif cfg.workspace_extents is not None:
@@ -156,6 +157,35 @@ class Trainer:
         self.measured_s = 0.0   # summed measured bundle time (device on
         #                         the card), whatever the clock billed
 
+        # optional pose refinement (isdf_tpu trainer.py:218-263): the loop
+        # runs a burst on each ingested frame (engine/loop.py)
+        self._last_kf_prop = 0.0   # no render evidence yet: refine
+        self._last_burst_s = 0.0   # the last burst's measured time
+        # seconds billed per burst in runs with a pinned clock; None bills
+        # the measured time (isdf_tpu's _pose_burst_device_s)
+        self._pose_burst_device_s = None
+        self.pose_state = None
+        if cfg.refine_poses:
+            self.pose_state, _ = P.init_pose_state(cfg.kf_buffer_size,
+                                                   device=self.device)
+            self._pose_step = P.PoseRefiner(
+                self.model, n_rays=cfg.n_rays,
+                n_surf_samples=cfg.n_surf_samples, min_depth=cfg.min_depth)
+            self._pose_gen = torch.Generator(device=self.device)
+            self._pose_gen.manual_seed(step_seed(seed, 0x505E))
+            # one burst at set-up: its first eigh initialises cuSOLVER,
+            # which the sim clock must not bill
+            warm, _ = P.init_pose_state(cfg.kf_buffer_size,
+                                        device=self.device)
+            self._pose_step(
+                self.params, warm,
+                torch.zeros((1, self.H, self.W), device=self.device),
+                torch.eye(4, device=self.device)[None],
+                torch.zeros((1,), dtype=torch.long, device=self.device),
+                self.fns.dirs, self.transform_dev,
+                torch.Generator(device=self.device).manual_seed(0),
+                n_steps=cfg.pose_iters)[1].cpu()
+
         # GT SDF for eval (numpy [N, 3] -> [N]); GT grids from disk are
         # not ported (reference trainer.py:446-453)
         self.gt_sdf_fn = getattr(dataset, "gt_sdf_fn", None)
@@ -178,6 +208,20 @@ class Trainer:
                 self.last_is_keyframe = True
                 self.add_frame(self.get_data([int(i)])[0])
             self.last_is_keyframe = True
+
+        # fixed (voxblox-comparable) eval timestamps, read from the
+        # eval_pts data directory (reference trainer.py:268-292)
+        self.eval_pts_dir = None
+        self.eval_times: List[float] = []
+        if cfg.do_vox_comparison and cfg.eval_pts_root and cfg.seq_dir:
+            frac_dir = {1.0: "0.055", 0.75: "0.063", 0.5: "0.078",
+                        0.25: "0.11"}[cfg.frac_time_perception]
+            seq = [x for x in cfg.seq_dir.split("/") if x][-1]
+            d = os.path.join(cfg.eval_pts_root, "vox", frac_dir, seq,
+                             "eval_pts")
+            if os.path.isdir(d):
+                self.eval_pts_dir = d
+                self.eval_times = sorted(float(x) for x in os.listdir(d))
 
     # ------------------------------------------------------------------
     # scene frame
@@ -274,12 +318,25 @@ class Trainer:
     # keyframe state machine (reference trainer.py:586-650)
 
     def is_keyframe(self, frame: FrameData) -> bool:
-        is_kf, _ = self.fns.is_keyframe(
+        is_kf, prop = self.fns.is_keyframe(
             self.frozen_params,
             torch.as_tensor(frame.depth, device=self.device),
             torch.as_tensor(frame.T_WC, device=self.device),
             self.transform_dev, self._kf_gen, self.noise_std)
+        # the share of sampled pixels the frozen map already renders within
+        # threshold at the frame's current pose: the pose tracker's drift
+        # evidence (should_refine_pose)
+        self._last_kf_prop = float(prop)
         return bool(is_kf)
+
+    def should_refine_pose(self) -> bool:
+        """Run a pose burst only on drift evidence: skip it when the latest
+        keyframe check found at least cfg.pose_skip_prop of its pixels
+        already rendered within threshold (isdf_tpu trainer.py:422-432);
+        pose_skip_prop <= 0 always refines."""
+        if self.cfg.pose_skip_prop <= 0.0:
+            return True
+        return self._last_kf_prop < self.cfg.pose_skip_prop
 
     def check_keyframe_latest(self) -> bool:
         """Whether to add a new frame (reference trainer.py:622-650)."""
@@ -381,3 +438,220 @@ class Trainer:
         trainer.py:1426-1444)."""
         return self.sdf_fn(self.grid_pc).reshape(
             self.grid_dim, self.grid_dim, self.grid_dim)
+
+    def get_sdf_grid_sparse(self, stride: int = 2, safety: float = 2.0):
+        """Coarse-to-fine SDF grid for meshing (isdf_tpu trainer.py:627-688):
+        a stride-subsampled lattice first, then the fine points inside the
+        coarse cells that can hold the zero level set.
+
+        Every point of a cell lies within half the cell diagonal of a
+        corner, so a (near) 1-Lipschitz SDF cannot cross zero in a cell
+        whose smallest corner |sdf| exceeds diag / 2; cells above
+        safety * diag / 2 are skipped and filled with the nearest coarse
+        value (of the right sign by the same argument). Every fine cell
+        with a crossing lies in an active coarse cell, so the mesh equals
+        the dense grid's. The points are gathered on the device and each
+        pass is one chunked query with one fetch.
+
+        Returns (grid [dim]^3 numpy, evaluated fraction)."""
+        dim = self.grid_dim
+        pc = self.grid_pc.reshape(dim, dim, dim, 3)
+        ci = np.arange(0, dim, stride)
+        if ci[-1] != dim - 1:
+            ci = np.append(ci, dim - 1)
+        nc = len(ci)
+        cit = torch.as_tensor(ci, device=self.device)
+        coarse = self.sdf_fn(pc[cit][:, cit][:, :, cit].reshape(-1, 3)
+                             ).reshape(nc, nc, nc)
+
+        # per-cell world diagonal (index gap x world spacing per axis; the
+        # rotation of bounds_transform keeps lengths)
+        gaps = np.diff(ci).astype(np.float32)
+        sp = 2.0 * self.scene_scale_np / (dim - 1)
+        diag = np.sqrt((gaps[:, None, None] * sp[0]) ** 2
+                       + (gaps[None, :, None] * sp[1]) ** 2
+                       + (gaps[None, None, :] * sp[2]) ** 2)
+        a = np.abs(coarse)
+        corner_min = np.minimum.reduce([
+            a[i:i + nc - 1, j:j + nc - 1, k:k + nc - 1]
+            for i in (0, 1) for j in (0, 1) for k in (0, 1)])
+        active_cell = corner_min <= safety * diag * 0.5
+
+        # cell activity -> point activity: coarse cell j covers the fine
+        # indices ci[j]..ci[j+1] inclusive, by per-axis incidence
+        inc = np.zeros((dim, nc - 1), np.float32)
+        for j in range(nc - 1):
+            inc[ci[j]:ci[j + 1] + 1, j] = 1.0
+        m = np.tensordot(inc, active_cell.astype(np.float32), (1, 0))
+        m = np.tensordot(inc, m, (1, 1))
+        m = np.tensordot(inc, m, (1, 2))
+        mask = m.transpose(2, 1, 0) > 0.0
+
+        nn = np.abs(np.arange(dim)[:, None] - ci[None, :]).argmin(axis=1)
+        out = coarse[np.ix_(nn, nn, nn)].astype(np.float32)
+        n_active = int(mask.sum())
+        if n_active:
+            out[mask] = self.sdf_fn(
+                pc[torch.as_tensor(mask, device=self.device)])
+        return out, n_active / float(dim ** 3)
+
+    # ------------------------------------------------------------------
+    # evals, meshing and persistence
+
+    def _cached_scene(self):
+        from isdf_tpu_torch.data.datasets import SceneCache
+        cache = getattr(self, "_scene_cache", None)
+        if cache is None:
+            cache = self._scene_cache = SceneCache(self.dataset, skip=5)
+        return cache
+
+    def eval_fixed(self, t: float = None):
+        """The fixed-point protocol at timestamp t (reference
+        trainer.py:2080-2088); pops the next pending timestamp when t is
+        None."""
+        from isdf_tpu_torch.eval.eval_pts import fixed_pts_eval
+
+        if t is None:
+            t = self.eval_times.pop(0)
+        n_seen = min(max(int(t * self.cfg.fps), 1), len(self.dataset))
+        sample = self._cached_scene()[np.arange(n_seen)]
+        obj_bounds = None
+        if self.cfg.seq_dir:
+            f = os.path.join(self.cfg.seq_dir, "obj_bounds.txt")
+            if os.path.exists(f):
+                from isdf_tpu_torch.eval.objects import load_obj_bounds
+                obj_bounds = load_obj_bounds(f)
+        return fixed_pts_eval(
+            self.sdf_fn, t, self.eval_pts_dir, sample["depth"], sample["T"],
+            self.dirs_C.cpu().numpy(), self.gt_sdf_fn,
+            self.cfg.dataset_format, grad_fn=self.grad_fn,
+            obj_bounds=obj_bounds, samples=self.cfg.eval_samples,
+            eval_pts_root=self.cfg.eval_pts_root, seq_dir=self.cfg.seq_dir)
+
+    def eval_sdf(self, samples: int = 200000, visible_region: bool = True):
+        """The online SDF eval (reference trainer.py:1819-1866)."""
+        from isdf_tpu_torch.eval.protocol import eval_sdf
+        return eval_sdf(self, samples=samples, visible_region=visible_region)
+
+    def _seq_file(self, name: str):
+        f = (os.path.join(self.cfg.seq_dir, name) if self.cfg.seq_dir
+             else None)
+        return f if f and os.path.exists(f) else None
+
+    def eval_object_sdf(self, samples: int = 10000):
+        """Per-object SDF L1 (reference trainer.py:1955-2008); needs
+        obj_bounds.txt in the sequence directory, else None."""
+        from isdf_tpu_torch.eval.objects import (eval_object_sdf,
+                                                 load_obj_bounds)
+        f = self._seq_file("obj_bounds.txt")
+        return (None if f is None else
+                eval_object_sdf(self, load_obj_bounds(f), samples=samples))
+
+    def eval_traj_cost(self, t_ahead: float = 5.0):
+        """CHOMP cost along the upcoming GT trajectory (reference
+        trainer.py:2010-2052); needs traj.txt in the sequence directory,
+        else None."""
+        from isdf_tpu_torch.eval.objects import eval_traj_cost
+        f = self._seq_file("traj.txt")
+        return (None if f is None else
+                eval_traj_cost(self, np.loadtxt(f), t_ahead=t_ahead))
+
+    def eval_mesh(self, samples: int = 200000):
+        """Mesh accuracy and completion against the GT mesh (reference
+        trainer.py:2054-2064)."""
+        from isdf_tpu_torch.eval.protocol import eval_mesh
+        return eval_mesh(self, samples=samples)
+
+    def update_scene_bounds_from_observations(self):
+        """Fit the training domain to the observed pointcloud where no GT
+        scene bounds exist (reference trainer.py:1514-1516)."""
+        from isdf_tpu_torch.vis.mesh_export import observed_pointcloud
+        pc = observed_pointcloud(self)
+        if len(pc) < 100:
+            return
+        T_scene_to_box, extents = G.oriented_bounds(pc)
+        self.set_scene_properties(
+            np.linalg.inv(T_scene_to_box).astype(np.float32),
+            extents.astype(np.float32))
+
+    def mesh_rec(self, crop_mesh_with_pc: bool = True):
+        """The reconstructed mesh (vertices, faces) (reference
+        trainer.py:1500-1542)."""
+        from isdf_tpu_torch.vis.mesh_export import reconstruct_mesh
+        if not self.gt_scene and self.incremental:
+            self.update_scene_bounds_from_observations()
+        return reconstruct_mesh(self, crop_mesh_with_pc=crop_mesh_with_pc)
+
+    def write_mesh(self, filename: str):
+        from isdf_tpu_torch.vis.mesh_export import write_mesh
+        return write_mesh(self, filename)
+
+    def save_checkpoint(self, path: str, step: int = 0):
+        from isdf_tpu_torch.utils import checkpoint as CK
+        CK.save_checkpoint(path, self, step=step)
+
+    def load_checkpoint(self, path: str):
+        """Load a full-state .npz (either package's), or a reference torch
+        .pth / .pt (weights only, reference trainer.py:441-444)."""
+        from isdf_tpu_torch.utils import checkpoint as CK
+        if path.endswith((".pth", ".pt")):
+            self.params = CK.load_reference_state_dict(path, self.params,
+                                                       self.model)
+            self.frozen_params = M.copy_params(self.params)
+            return None
+        return CK.load_checkpoint(path, self)
+
+    # ------------------------------------------------------------------
+    # pose refinement (engine/pose.py)
+
+    def refine_poses_step(self, n_frames: int = 5, n_steps: int = 1):
+        """One pose burst of ``n_steps`` iterations over the newest
+        ``n_frames`` arena rows; updates self.pose_state (fold it in with
+        apply_pose_corrections). The burst is timed like a bundle: CUDA
+        events on the card, the host clock on the CPU
+        (``_last_burst_s``). Returns the last iteration's loss."""
+        if self.pose_state is None:
+            raise RuntimeError("enable model.refine_poses in the config")
+        n = self.buffer.count
+        rows = torch.arange(max(n - n_frames, 0), max(n, 1),
+                            device=self.device)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+        t0 = time.perf_counter()
+        self.pose_state, losses = self._pose_step(
+            self.params, self.pose_state, self.buffer.depth[rows],
+            self.buffer.T_WC[rows], rows, self.fns.dirs, self.transform_dev,
+            self._pose_gen, n_steps=n_steps)
+        if cuda:
+            ev1.record()
+        ls = losses.cpu().numpy()   # [n_steps + 1], the pre-burst loss first
+        self._last_burst_s = (ev0.elapsed_time(ev1) * 1e-3 if cuda
+                              else time.perf_counter() - t0)
+        self._last_burst_rel_improve = float(
+            (ls[0] - ls[-1]) / max(ls[0], 1e-9))
+        return float(ls[-1])
+
+    def apply_pose_corrections(self):
+        """Fold the twists into the arena poses (T_WC <- exp(xi) T_WC) and
+        zero them, so the step, renders and evals read corrected poses
+        (isdf_tpu trainer.py:836-871). The newest frame's host copy gets
+        its corrected pose too: the keyframe test and meshing read it.
+
+        A burst whose loss fell by less than cfg.pose_min_rel_improve (as
+        a fraction) carries map bias rather than drift: its twists are
+        dropped without folding."""
+        tw = self.pose_state.twists
+        rel = getattr(self, "_last_burst_rel_improve", None)
+        if rel is not None and rel < self.cfg.pose_min_rel_improve:
+            tw.zero_()
+            return
+        self.buffer.T_WC.copy_(P.corrected_poses(tw, self.buffer.T_WC))
+        tw.zero_()
+        n = self.buffer.count
+        if n > 0 and len(self.frames) > 0:
+            self.frames.frames[-1] = dataclasses.replace(
+                self.frames.frames[-1],
+                T_WC=self.buffer.T_WC[n - 1].cpu().numpy())

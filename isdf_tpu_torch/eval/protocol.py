@@ -1,7 +1,8 @@
 """Online SDF evaluation protocol (isdf_tpu/eval/protocol.py; reference
 trainer.py:1819-1953): host-side sampling with a numpy generator, SDF
 queries through the trainer's chunked ``sdf_fn`` / ``grad_fn`` on its
-device. The mesh protocol (eval_mesh) is not ported yet."""
+device; the mesh protocol (eval_mesh) scores the reconstructed mesh
+against a GT mesh."""
 
 from __future__ import annotations
 
@@ -110,3 +111,34 @@ def eval_grad_cossim(trainer, samples: int = 20000,
 
     cos = (_n(g_pred) * _n(g_gt)).sum(-1)
     return float(1.0 - cos.mean())
+
+
+def eval_mesh(trainer, samples: int = 200000, gt_mesh=None,
+              seed: Optional[int] = None):
+    """Mesh accuracy and completion against a GT mesh (reference
+    trainer.py:2054-2064): ``samples`` area-weighted points on each mesh
+    from one numpy generator, reconstruction first. ``gt_mesh``:
+    (vertices, faces); by default the dataset's, else
+    dataset.gt_sdf_dir/mesh.obj. Returns (accuracy, completion) in
+    metres."""
+    from isdf_tpu_torch.utils import mesh3d
+    from isdf_tpu_torch.vis import mesh_export as ME
+
+    rng = np.random.default_rng(seed)
+    rec_v, rec_f = ME.reconstruct_mesh(trainer)
+    if gt_mesh is None:
+        if hasattr(trainer.dataset, "gt_mesh"):
+            gt_mesh = trainer.dataset.gt_mesh()
+        elif trainer.cfg.gt_sdf_dir:
+            import os
+            gt_mesh = mesh3d.load_mesh(
+                os.path.join(trainer.cfg.gt_sdf_dir, "mesh.obj"))
+        else:
+            raise ValueError(
+                "mesh_eval needs a GT mesh: the dataset provides none "
+                "and dataset.gt_sdf_dir is unset (the reference loads "
+                "gt_sdf_dir/mesh.obj)")
+    gt_v, gt_f = gt_mesh
+    rec_pts = mesh3d.sample_surface(rec_v, rec_f, samples, rng)
+    gt_pts = mesh3d.sample_surface(gt_v, gt_f, samples, rng)
+    return MET.accuracy(gt_pts, rec_pts), MET.completion(gt_pts, rec_pts)

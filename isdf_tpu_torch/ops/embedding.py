@@ -64,14 +64,28 @@ def scale_input(x, transform=None, scale=None):
     return x
 
 
+_DEVICE_CONSTS = {}
+
+
+def _device_consts(min_deg: int, max_deg: int, device):
+    """(bands, icosahedron directions [3, 21]) on ``device``, copied there
+    once: a copy from pageable host memory on every call would wait for
+    the card's stream."""
+    key = (min_deg, max_deg, str(device))
+    if key not in _DEVICE_CONSTS:
+        _DEVICE_CONSTS[key] = (
+            bands(min_deg, max_deg).to(device),
+            torch.from_numpy(ICOSAHEDRON_DIRS.T.copy()).to(device))
+    return _DEVICE_CONSTS[key]
+
+
 def positional_encoding(x, transform=None, scale: float = 1.0,
                         min_deg: int = 0, max_deg: int = 5):
     """x: [..., 3] world coordinates -> [..., 2*21*n_freqs + 3], laid out
     [scaled_xyz, sin(proj * 2^k) (dir-major, freq-minor),
     sin(proj * 2^k + pi/2)]. Float32 throughout."""
-    b = bands(min_deg, max_deg).to(x.device)
+    b, D = _device_consts(min_deg, max_deg, x.device)
     xs = scale_input(x, transform=transform, scale=scale)
-    D = torch.from_numpy(ICOSAHEDRON_DIRS.T.copy()).to(x.device)
     proj = xs @ D                                            # [..., 21]
     xb = (proj[..., None] * b).reshape(*proj.shape[:-1], -1)
     emb = torch.sin(torch.cat([xb, xb + 0.5 * np.pi], dim=-1))

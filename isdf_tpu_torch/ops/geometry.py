@@ -139,3 +139,36 @@ def look_at(eye, target=None, up=None):
     x_axis = _n(np.cross(up, z_axis))
     y_axis = _n(np.cross(z_axis, x_axis))
     return np.vstack((x_axis, y_axis, z_axis)).T, eye
+
+
+def pc_bounds(pc):
+    """Axis-aligned extents and centroid of a pointcloud [N, 3] (numpy)."""
+    mins = np.min(pc, axis=0)
+    maxs = np.max(pc, axis=0)
+    return maxs - mins, (maxs + mins) / 2.0
+
+
+def oriented_bounds(points):
+    """PCA oriented bounding box of a pointcloud [N, 3] (numpy, float64).
+
+    Returns (T_scene_to_box [4, 4], extents [3]), the contract of
+    trimesh.bounds.oriented_bounds as the reference uses it
+    (isdf/modules/trainer.py:121-122): the transform maps scene
+    coordinates into the box frame centred at the origin, ``extents`` is
+    the box size in that frame. A PCA box is within a few percent of the
+    minimal-volume box for room-scale scans; it sets only the training
+    domain's normalisation."""
+    pts = np.asarray(points, dtype=np.float64)
+    centroid = pts.mean(axis=0)
+    centred = pts - centroid
+    _, R = np.linalg.eigh(np.cov(centred.T))  # columns are the box axes
+    if np.linalg.det(R) < 0:
+        R[:, 0] *= -1
+    local = centred @ R
+    mins = local.min(axis=0)
+    maxs = local.max(axis=0)
+    center_world = centroid + R @ ((maxs + mins) / 2.0)
+    T_scene_to_box = np.eye(4)
+    T_scene_to_box[:3, :3] = R.T
+    T_scene_to_box[:3, 3] = -R.T @ center_world
+    return T_scene_to_box, maxs - mins

@@ -4,14 +4,17 @@
     python -m isdf_tpu_torch.train.train --config cfg.json [-ni] [-hd] \
         [--save_path DIR | --save] [--max_steps N] [--max_time_s T] \
         [--seed S] [--grid_dim D] [--per_step] [--trace DIR] \
-        [--sim_dt DT] [--set SECTION.KEY=VALUE] [--device cuda|cpu]
+        [--sim_dt DT] [--load_checkpoint PATH] [--set SECTION.KEY=VALUE] \
+        [--device cuda|cpu]
 
 Runs on the CUDA device unless ``--device cpu``. ``-ni`` is the batch
 (non-incremental) mode, ``--per_step`` the reference's one-step loop,
 ``--trace`` writes a torch.profiler trace of the run. With eval.do_eval the
 reference protocol scores the visible region against the GT SDF into
-res.json ("rays"). Checkpoints (``--load_checkpoint``, save hooks), slices,
-meshes and pose refinement are not ported yet.
+res.json ("rays"). ``--load_checkpoint`` resumes from a full-state .npz
+(either package's) or loads the weights of a reference torch .pth; the
+save section writes checkpoints and meshes under the save path at sim-time
+marks. Slices (save.save_slices) are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def main(argv=None):
                         help="stop after this much simulated time")
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--load_checkpoint", type=str, default=None,
-                        help="not ported yet")
+                        help=".npz full-state checkpoint or a reference "
+                             "torch .pth (weights only)")
     parser.add_argument("--grid_dim", type=int, default=200)
     parser.add_argument("--per_step", action="store_true",
                         help="reference-exact per-step loop (no bundling)")
@@ -57,9 +61,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.load_checkpoint:
-        raise NotImplementedError(
-            "--load_checkpoint is not ported to isdf_tpu_torch yet")
 
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
@@ -83,6 +84,8 @@ def main(argv=None):
     if args.sim_dt is not None:
         trainer._per_step_device_s = args.sim_dt
         trainer._bill_exact = True
+    if args.load_checkpoint:
+        trainer.load_checkpoint(args.load_checkpoint)
     ctx = (device_trace(args.trace) if args.trace
            else contextlib.nullcontext())
     with ctx:

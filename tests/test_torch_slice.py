@@ -238,6 +238,10 @@ PORT_MODULES = [
     "isdf_tpu_torch.data.datasets", "isdf_tpu_torch.train.train",
     "isdf_tpu_torch.train.profile_step", "isdf_tpu_torch.eval.metrics",
     "isdf_tpu_torch.eval.protocol", "isdf_tpu_torch.ops.frustum",
+    "isdf_tpu_torch.engine.pose", "isdf_tpu_torch.eval.eval_pts",
+    "isdf_tpu_torch.eval.objects", "isdf_tpu_torch.serve",
+    "isdf_tpu_torch.utils.checkpoint", "isdf_tpu_torch.utils.mesh3d",
+    "isdf_tpu_torch.utils.native", "isdf_tpu_torch.vis.mesh_export",
 ]
 
 
@@ -302,15 +306,12 @@ def test_tpu_only_knobs_are_inert(monkeypatch):
 
 def test_unported_config_parts_raise():
     from isdf_tpu_torch.engine.trainer import Trainer
-    with pytest.raises(NotImplementedError, match="refine_poses"):
-        Trainer(_small(TConfig).replace(refine_poses=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="save_slices"):
+        Trainer(_small(TConfig).replace(save_slices=True), device="cpu")
     with pytest.raises(NotImplementedError, match="data_parallel"):
         Trainer(_small(TConfig).replace(data_parallel=2), device="cpu")
     with pytest.raises(NotImplementedError, match="replicaCAD"):
         Trainer(_small(TConfig).replace(dataset_format="replicaCAD"),
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="save_checkpoints"):
-        Trainer(_small(TConfig).replace(save_checkpoints=True),
                 device="cpu")
 
 

@@ -279,5 +279,5 @@ def test_cli_save_and_unported_flags(tmp_path, monkeypatch):
     (run,) = os.listdir(tmp_path / "results" / "isdf_tpu_torch")
     assert os.path.exists(tmp_path / "results" / "isdf_tpu_torch" / run /
                           "res.json")
-    with pytest.raises(NotImplementedError, match="load_checkpoint"):
-        main(_cli_args(tmp_path, "--load_checkpoint", "x.pth"))
+    with pytest.raises(NotImplementedError, match="save_slices"):
+        main(_cli_args(tmp_path, "--set", "save.save_slices=1"))

@@ -68,7 +68,25 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      random-walk pose noise with and without model.refine_poses (bursts on
      ingested frames, billed by CUDA events; the arena pose errors
      printed). Each run counts K1-pc once a step;
-  8. print the card, the kernels' JSON line, and the result line.
+  8. the real-data formats, through the port's own image codec (whose
+     native library must build and serve every read) and fixture writer:
+     (a) a ReplicaCAD-format fixture at replicaCAD.json's camera (1200x680,
+     90 frames, GT grid, mesh.obj, eval_pts masks at 1.0 and 2.0 s of
+     200,000 points) and the CLI on the shipped replicaCAD.json pointed at
+     it, 660 steps: K1-ray once a step and no other kernel, the scene frame
+     from mesh.obj, vox_res.json at both times with the four regions, the
+     last visible-region av_l1 below 0.30; (b) the same for a ScanNet
+     export at 640x480 (45 frames, 0.5 and 1.4 s, 450 steps) on
+     scannet.json, the camera read from the scene info txt and |grid| as
+     the GT; (c) record_frames of the synthetic scene at
+     realsense_franka_offline.json's camera, then that config on the
+     recording, 300 steps; (d) realsense.json with
+     model.embedding.n_embed_funcs=5 on frames a writer thread drops into
+     its live_dir (a forked watcher process, closed at the end), 300
+     steps. (c) and (d) launch K1-ray once a step and lower the loss. It
+     prints the per-frame read ms, the fixture write seconds and each
+     run's device ms per step;
+  9. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -1174,6 +1192,303 @@ def _healthz(port):
     return {k: info[k] for k in ("param_count", "device", "step")}
 
 
+# the data phase: the shipped reference-schema configs on data written in
+# their own formats (data/fixtures.py, data/live.py::record_frames) and on
+# live frames; the clock pinned at 1/300 s a step, as in every trainer run
+CONFIG_DIR = os.path.dirname(CONFIG)
+DATA_SIM_DT = 1.0 / 300
+DATA_AV_L1 = 0.30   # the last visible-region av_l1 of the fixture runs
+#                     (isdf_tpu's own fixture test, tests/
+#                     test_fixture_e2e.py:122)
+LIVE_FRAMES = 60    # frames pre-rendered for the live and recorded runs
+
+
+def _spy_trainer(fn):
+    """fn() with the loop's train_loop wrapped: (fn's result, the trainer
+    the loop ran)."""
+    from isdf_tpu_torch.engine import loop as LOOP
+    seen, orig = {}, LOOP.train_loop
+
+    def spy(trainer, **kw):
+        seen["tr"] = trainer
+        return orig(trainer, **kw)
+
+    LOOP.train_loop = spy
+    try:
+        return fn(), seen["tr"]
+    finally:
+        LOOP.train_loop = orig
+
+
+def _read_ms(ds, n=10):
+    """Mean host ms to read one frame of a reader (images decoded by the
+    port's codec)."""
+    t = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    return 1e3 * (time.perf_counter() - t) / n
+
+
+def _fixture_cli(torch, label, config, sets, steps, times):
+    """The CLI on a shipped config pointed at a fixture by ``sets``. Checks
+    K1-ray once a step and no other kernel, the scene frame from mesh.obj
+    and vox_res.json at ``times`` with the regions; returns (summary,
+    vox_res, the trainer)."""
+    from isdf_tpu_torch.train.train import main as cli
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--config", os.path.join(CONFIG_DIR, config), "--save_path",
+                d, "--max_steps", str(steps), "--sim_dt", str(DATA_SIM_DT)]
+        for item in sets:
+            args += ["--set", item]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, tr = _spy_trainer(lambda: cli(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        with open(os.path.join(d, "vox_res.json")) as f:
+            vox = json.load(f)
+    summary = dict(steps=res.steps, keyframes=len(res.kf_indices) + 1,
+                   frames_seen=int(tr.frames[-1].frame_id) + 1,
+                   camera=[tr.H, tr.W, tr.fx, tr.fy, tr.cx, tr.cy],
+                   wall_s=wall, steps_per_s_wall=res.steps / wall,
+                   device_ms_per_step=1e3 * tr.measured_s / res.steps,
+                   vis_av_l1={k: v["rays"]["vis"]["av_l1"]
+                              for k, v in vox.items()},
+                   surf_av_l1={k: v["visible_surf"]["vis"]["av_l1"]
+                               for k, v in vox.items()})
+    print(f"data[{label}]: {json.dumps(summary)}", flush=True)
+    print(f"data[{label}]: launches {launches}", flush=True)
+    assert launches["K1-ray"] == res.steps == steps, \
+        f"{label}: {launches['K1-ray']} K1-ray launches in {res.steps} steps"
+    assert all(v == 0 for k, v in launches.items() if k != "K1-ray"), \
+        f"{label}: other kernels ran"
+    assert tr.gt_scene, f"{label}: the scene frame is not from mesh.obj"
+    assert sorted(float(k) for k in vox) == list(times), \
+        f"{label}: vox_res.json has {sorted(vox)}"
+    for entry in vox.values():
+        assert {"rays", "visible_surf", "vol"} <= set(entry), label
+        for split in ("vis", "vox"):
+            assert all(float("-inf") < entry[r][split]["av_l1"] < 10.0
+                       for r in ("rays", "visible_surf")), label
+    return summary, vox, tr
+
+
+def _run_cfg(torch, label, cfg, dataset, steps):
+    """The trainer through its entry points (Trainer + train_loop) on
+    ``dataset``, the clock pinned; K1-ray once a step, no other kernel,
+    the loss falling. Returns the summary."""
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    tr = Trainer(cfg, dataset=dataset, seed=1)
+    assert tr.device.type == "cuda"
+    tr._per_step_device_s, tr._bill_exact = DATA_SIM_DT, True
+    losses, run_steps = [], tr.run_steps
+
+    def recording_run_steps(n):
+        out = run_steps(n)
+        losses.extend(out["total_loss"].tolist())
+        return out
+
+    tr.run_steps = recording_run_steps
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_loop(tr, max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n = max(len(losses) // 10, 1)
+    summary = dict(steps=res.steps, keyframes=len(res.kf_indices) + 1,
+                   camera=[tr.H, tr.W], loss_first=sum(losses[:n]) / n,
+                   loss_last=sum(losses[-n:]) / n, wall_s=wall,
+                   steps_per_s_wall=res.steps / wall,
+                   device_ms_per_step=1e3 * tr.measured_s / res.steps)
+    print(f"data[{label}]: {json.dumps(summary)}", flush=True)
+    print(f"data[{label}]: launches {launches}", flush=True)
+    assert launches["K1-ray"] == res.steps == steps, \
+        f"{label}: {launches['K1-ray']} K1-ray launches in {res.steps} steps"
+    assert all(v == 0 for k, v in launches.items() if k != "K1-ray"), \
+        f"{label}: other kernels ran"
+    assert summary["loss_last"] < summary["loss_first"], \
+        f"{label}: the loss did not fall"
+    return summary
+
+
+def _camera_frames(torch, cam, n):
+    """n frames of the synthetic room at a config's camera, rendered on
+    the card: (depth in mm as uint16, camera pose, a colour image)."""
+    import numpy as np
+
+    from isdf_tpu_torch.data.synthetic import SyntheticDataset, make_scene
+    hfov = float(2 * np.degrees(np.arctan(cam.w / (2 * cam.fx))))
+    ds = SyntheticDataset(make_scene("room_a"), n_frames=n, H=cam.h,
+                          W=cam.w, hfov_deg=hfov, device="cuda")
+    out = []
+    for i in range(n):
+        s = ds[i]
+        d = s["depth"]
+        shade = np.clip(d / 6.0, 0.0, 1.0)
+        img = (np.stack([shade, 1.0 - shade, 0.5 * shade + 0.25], -1)
+               * 255).astype(np.uint8)
+        out.append((np.clip(np.round(d * 1000.0), 0, 65535).astype(
+            np.uint16), s["T"], img))
+    return out
+
+
+def data_phase(torch):
+    """The real-data formats at full width (phase 8). Returns its
+    readings."""
+    import threading
+
+    import numpy as np
+
+    from isdf_tpu_torch.data import fixtures as FX
+    from isdf_tpu_torch.data.datasets import (ReplicaDataset,
+                                              ScanNetDataset, StreamDataset,
+                                              make_dataset)
+    from isdf_tpu_torch.data.live import record_frames
+    from isdf_tpu_torch.utils import native
+    from isdf_tpu_torch.utils.config import load_config
+
+    assert native.load("image_codec") is not None, \
+        "the image codec's native library did not build"
+    calls0 = dict(native.CALLS)
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) ReplicaCAD at replicaCAD.json's camera
+        t = time.perf_counter()
+        fx_cfg = FX.write_replicaCAD_fixture(
+            os.path.join(root, "rc"), n_frames=90, H=680, W=1200,
+            hfov_deg=90.0, eval_times=(1.0, 2.0), eval_samples=200000,
+            device="cuda")
+        out["replicaCAD_write_s"] = time.perf_counter() - t
+        fc = load_config(fx_cfg)
+        out["replicaCAD_read_ms"] = _read_ms(ReplicaDataset(fc.seq_dir, fc))
+        print(f"data[replicaCAD fixture]: written in "
+              f"{out['replicaCAD_write_s']:.2f} s, a 1200x680 frame (depth "
+              f"+ colour PNG) read in {out['replicaCAD_read_ms']:.2f} ms",
+              flush=True)
+        summary, vox, tr = _fixture_cli(
+            torch, "replicaCAD", "replicaCAD.json",
+            [f"dataset.seq_dir={fc.seq_dir}",
+             f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
+             f"eval.eval_pts_root={fc.eval_pts_root}",
+             "eval.do_vox_comparison=1"], 660, (1.0, 2.0))
+        assert (tr.H, tr.W) == (680, 1200)
+        last = vox[max(vox, key=float)]
+        assert "objects" in last and len(last["objects"]["l1"]) == 4
+        assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
+            f"replicaCAD: final visible av_l1 {last['rays']['vis']}"
+        out["replicaCAD"] = summary
+        del tr
+
+        # (b) a ScanNet export at 640x480
+        t = time.perf_counter()
+        fx_cfg = FX.write_scannet_fixture(
+            os.path.join(root, "sn"), n_frames=45, H=480, W=640,
+            eval_times=(0.5, 1.4), eval_samples=200000, device="cuda")
+        out["ScanNet_write_s"] = time.perf_counter() - t
+        fc = load_config(fx_cfg)
+        out["ScanNet_read_ms"] = _read_ms(ScanNetDataset(fc.scannet_dir, fc))
+        print(f"data[ScanNet fixture]: written in {out['ScanNet_write_s']:.2f}"
+              f" s, a 640x480 frame (depth PNG + colour JPEG) read in "
+              f"{out['ScanNet_read_ms']:.2f} ms", flush=True)
+        summary, vox, tr = _fixture_cli(
+            torch, "ScanNet", "scannet.json",
+            [f"dataset.seq_dir={fc.seq_dir}",
+             f"dataset.scannet_dir={fc.scannet_dir}",
+             f"dataset.intrinsics_file={fc.intrinsics_file}",
+             f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
+             f"eval.eval_pts_root={fc.eval_pts_root}",
+             "eval.do_vox_comparison=1"], 450, (0.5, 1.4))
+        with open(fc.intrinsics_file) as f:
+            fx_txt = float(f.readline().split("=")[1])
+        assert (tr.H, tr.W) == (480, 640) and tr.fx == fx_txt, \
+            "ScanNet: the camera is not the scene info txt's"
+        probe = np.random.default_rng(0).uniform(-3, 3, (20000, 3))
+        assert np.nanmin(tr.gt_sdf_fn(probe)) >= 0.0, "ScanNet: GT not |grid|"
+        last = vox[max(vox, key=float)]
+        assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
+            f"ScanNet: final visible av_l1 {last['rays']['vis']}"
+        out["ScanNet"] = summary
+        del tr
+
+        # (c) a recording in the Franka offline format, then the offline
+        # config on it
+        cfg = load_config(os.path.join(CONFIG_DIR,
+                                       "realsense_franka_offline.json"))
+        frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
+
+        class Camera:
+            """A live camera's frames: depth in mm, as a RealSense gives
+            it."""
+
+            def __len__(self):
+                return len(frames)
+
+            def __getitem__(self, i):
+                d, T, img = frames[i]
+                return {"depth": d.astype(np.float32), "T": T, "image": img}
+
+        rec = os.path.join(root, "franka")
+        t = time.perf_counter()
+        record_frames(StreamDataset(Camera(), fps=cfg.fps), rec,
+                      n_frames=LIVE_FRAMES, fps=cfg.fps)
+        out["franka_record_s"] = time.perf_counter() - t
+        # the shipped eval.do_eval = 1 needs a GT SDF, which a recording
+        # lacks: isdf_tpu raises at the first timed eval there too
+        # (ROADMAP C)
+        cfg = load_config(os.path.join(CONFIG_DIR,
+                                       "realsense_franka_offline.json"),
+                          overrides=[f"dataset.seq_dir={rec}",
+                                     "eval.do_eval=0"])
+        out["franka_offline"] = _run_cfg(torch, "realsense_franka_offline",
+                                         cfg, make_dataset(cfg), 300)
+
+        # (d) live frames dropped into realsense.json's live_dir
+        live_dir = os.path.join(root, "live")
+        os.makedirs(live_dir)
+        cfg = load_config(os.path.join(CONFIG_DIR, "realsense.json"),
+                          overrides=[f"dataset.live_dir={live_dir}",
+                                     "model.embedding.n_embed_funcs=5"])
+        frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
+        stop = threading.Event()
+
+        def writer():
+            i = 0
+            while not stop.is_set():
+                d, T, img = frames[i % len(frames)]
+                tmp = os.path.join(live_dir, f".tmp{i}.npz")
+                np.savez(tmp, depth=d, T=T, image=img)
+                os.replace(tmp, os.path.join(live_dir, f"frame{i:06d}.npz"))
+                i += 1
+                stop.wait(1.0 / cfg.fps)
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        ds = make_dataset(cfg)
+        try:
+            out["realsense_live"] = _run_cfg(torch, "realsense live", cfg,
+                                             ds, 300)
+        finally:
+            stop.set()
+            th.join(timeout=10)
+            ds.source.close()
+        assert not ds.source.proc.is_alive(), "the live watcher is alive"
+        assert not th.is_alive(), "the frame writer is alive"
+
+    served = native.CALLS["image_codec"] - calls0["image_codec"]
+    fallback = native.CALLS["image_codec_numpy"] - calls0["image_codec_numpy"]
+    print(f"data: the image codec's native library served {served} images,"
+          f" numpy {fallback}", flush=True)
+    assert served > 0 and fallback == 0, \
+        "the native image codec did not serve every read and write"
+    out["codec_native_images"] = served
+    return out
+
+
 POSE_STEPS = 1200
 POSE_SET = ["dataset.pose_noise_std=0.006", "dataset.pose_noise_mode=walk"]
 # the anchored tracking test: isdf_tpu's tests/test_engine.py:284-336 at
@@ -1410,9 +1725,12 @@ def main():
     # service, then pose tracking ----
     readings = persistence_phase(torch)
     readings["pose"] = pose_phase(torch)
+
+    # ---- phase 8: the real-data formats ----
+    readings["data"] = data_phase(torch)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 8: report ----
+    # ---- phase 9: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

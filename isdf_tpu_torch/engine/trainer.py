@@ -21,9 +21,10 @@ trainer.py:514-528).
 Meshing (``get_sdf_grid_sparse``, ``mesh_rec``, ``write_mesh``), the mesh,
 fixed-point (voxblox-comparable), object and trajectory evals, checkpoints
 (utils/checkpoint.py, isdf_tpu's .npz format) and pose refinement
-(engine/pose.py, ``model.refine_poses``) run as in isdf_tpu. Not ported yet:
-slices (save.save_slices), visualisation, data parallelism and GT SDF grids
-or meshes from disk; a config that asks for them raises.
+(engine/pose.py, ``model.refine_poses``) run as in isdf_tpu, and so do the
+scene frame from ``gt_sdf_dir/mesh.obj`` and the GT SDF grid from
+``gt_sdf_dir/1cm``. Not ported yet: slices (save.save_slices),
+visualisation and data parallelism; a config that asks for them raises.
 """
 
 from __future__ import annotations
@@ -78,9 +79,15 @@ class Trainer:
             from isdf_tpu_torch.data.datasets import make_dataset
             dataset = make_dataset(cfg, device=self.device)
         self.dataset = dataset
+        cam_cfg = cfg.camera
+        if cfg.dataset_format == "ScanNet" and cfg.intrinsics_file:
+            # the camera of a ScanNet export is its scene info txt's
+            # (isdf_tpu trainer.py:62-64)
+            from isdf_tpu_torch.utils.config import scannet_cam_params
+            cam_cfg = scannet_cam_params(cfg.intrinsics_file)
         cam = (dataset.camera() if hasattr(dataset, "camera") else dict(
-            H=cfg.camera.h, W=cfg.camera.w, fx=cfg.camera.fx,
-            fy=cfg.camera.fy, cx=cfg.camera.cx, cy=cfg.camera.cy))
+            H=cam_cfg.h, W=cam_cfg.w, fx=cam_cfg.fx, fy=cam_cfg.fy,
+            cx=cam_cfg.cx, cy=cam_cfg.cy))
         self.H, self.W = int(cam["H"]), int(cam["W"])
         self.fx, self.fy = float(cam["fx"]), float(cam["fy"])
         self.cx, self.cy = float(cam["cx"]), float(cam["cy"])
@@ -106,9 +113,16 @@ class Trainer:
             self.set_scene_properties(T, np.asarray(cfg.workspace_extents))
         elif cfg.gt_sdf_dir and os.path.exists(
                 os.path.join(cfg.gt_sdf_dir, "mesh.obj")):
-            raise NotImplementedError(
-                "not ported to isdf_tpu_torch yet: the scene frame from "
-                "dataset.gt_sdf_dir/mesh.obj")
+            # the scene mesh beside the GT SDF gives the training domain,
+            # its oriented bounds (reference trainer.py:207, 80-86, 121-123)
+            from isdf_tpu_torch.utils.mesh3d import load_mesh
+            verts, _ = load_mesh(os.path.join(cfg.gt_sdf_dir, "mesh.obj"))
+            T_scene_to_box, extents = G.oriented_bounds(verts)
+            self.set_scene_properties(
+                np.linalg.inv(T_scene_to_box).astype(np.float32),
+                np.asarray(extents, np.float32))
+            self.scene_center = 0.5 * (verts.min(0) + verts.max(0))
+            self.gt_scene = True
         else:
             # bootstrap domain, until the pointcloud refines it
             self.set_scene_properties(np.eye(4, dtype=np.float32),
@@ -186,11 +200,13 @@ class Trainer:
                 torch.Generator(device=self.device).manual_seed(0),
                 n_steps=cfg.pose_iters)[1].cpu()
 
-        # GT SDF for eval (numpy [N, 3] -> [N]); GT grids from disk are
-        # not ported (reference trainer.py:446-453)
+        # GT SDF for eval (numpy [N, 3] -> [N]): the dataset's, the
+        # analytic scene's, or the grid in gt_sdf_dir
         self.gt_sdf_fn = getattr(dataset, "gt_sdf_fn", None)
         if self.gt_sdf_fn is None and hasattr(dataset, "scene"):
             self.gt_sdf_fn = dataset.scene.sdf_np
+        if self.gt_sdf_fn is None and cfg.gt_sdf_dir:
+            self._load_gt_sdf_grid()
 
         # batch (non-incremental) mode: the chosen views become keyframes
         # now (reference trainer.py:514-528)
@@ -222,6 +238,24 @@ class Trainer:
             if os.path.isdir(d):
                 self.eval_pts_dir = d
                 self.eval_times = sorted(float(x) for x in os.listdir(d))
+
+    def _load_gt_sdf_grid(self):
+        """gt_sdf_dir/1cm/{sdf.npy, transform.txt} -> a world-frame
+        interpolator, NaN outside the grid; ScanNet's GT is |grid| (its
+        TSDF-fusion signs are unreliable; reference trainer.py:446-453)."""
+        from isdf_tpu_torch.data import sdf_util as SU
+        cfg = self.cfg
+        sdf_file = os.path.join(cfg.gt_sdf_dir, "1cm", "sdf.npy")
+        tr_file = os.path.join(cfg.gt_sdf_dir, "1cm", "transform.txt")
+        if not os.path.exists(sdf_file):
+            return
+        grid = np.load(sdf_file)
+        if cfg.dataset_format == "ScanNet":
+            grid = np.abs(grid)
+        transform = SU.load_transform_txt(tr_file)
+        interp = SU.sdf_interpolator(grid, transform)
+        self.gt_sdf_fn = lambda pts: SU.eval_sdf_interp(
+            interp, pts, handle_oob="fill", oob_val=np.nan)
 
     # ------------------------------------------------------------------
     # scene frame

@@ -419,3 +419,19 @@ def load_config(path: str, overrides=None) -> Config:
         live_dir=_resolve(c.live_dir),
     )
 
+
+
+def scannet_cam_params(path: str) -> CameraConfig:
+    """Parse a ScanNet scene info txt (reference trainer.py:335-346):
+    `key = value` lines with fx_depth/fy_depth/mx_depth/my_depth and
+    depthWidth/depthHeight."""
+    info = {}
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if " = " in line:
+                k, v = line.split(" = ", 1)
+                info[k.strip()] = v.strip()
+    return CameraConfig(
+        w=int(info["depthWidth"]), h=int(info["depthHeight"]),
+        fx=float(info["fx_depth"]), fy=float(info["fy_depth"]),
+        cx=float(info["mx_depth"]), cy=float(info["my_depth"]))

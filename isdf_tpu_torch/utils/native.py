@@ -1,11 +1,13 @@
 """Host-side C++ helpers, built with g++ at first use and loaded through
 ctypes (isdf_tpu/utils/native.py).
 
-``csrc/marching_tets.cpp`` (a copy of isdf_tpu's) is compiled with -O3
-into the port's build directory (utils/nvcc.py::build_dir, which .gitignore
-lists), keyed by the hash of the source. Without a compiler the callers
-fall back to the numpy implementations; ``CALLS`` counts the calls that
-the native library served, so a caller can tell which ran.
+``csrc/marching_tets.cpp`` (a copy of isdf_tpu's) and
+``csrc/image_codec.cpp`` (the PNG/JPEG byte work of utils/image_io.py) are
+compiled with -O3 into the port's build directory (utils/nvcc.py::
+build_dir, which .gitignore lists), keyed by the hash of the source.
+Without a compiler the callers fall back to the numpy implementations;
+``CALLS`` counts the calls that the native library served (and, for the
+image codec, the ones numpy served), so a caller can tell which ran.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from isdf_tpu_torch.utils.nvcc import CSRC, build_dir
 
 _libs = {}
 _lock = threading.Lock()
-CALLS = {"marching_tets": 0}
+CALLS = {"marching_tets": 0, "image_codec": 0, "image_codec_numpy": 0}
 
 
 def load(name: str) -> Optional[ctypes.CDLL]:
@@ -69,6 +71,23 @@ def _build(name: str) -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
             ctypes.POINTER(ctypes.c_long)]
         lib.free_tris.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    if name == "image_codec":
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        i16 = ctypes.POINTER(ctypes.c_int16)
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [u8, ctypes.c_int, ctypes.c_long,
+                                     ctypes.c_int, u8]
+        lib.jpeg_decode_scan.restype = ctypes.c_long
+        lib.jpeg_decode_scan.argtypes = [
+            u8, ctypes.c_long, ctypes.c_long, ctypes.c_int, u8,
+            ctypes.c_int, u8, ctypes.c_int, i16]
+        lib.jpeg_idct_islow.restype = None
+        lib.jpeg_idct_islow.argtypes = [
+            i16, ctypes.c_long, ctypes.POINTER(ctypes.c_uint16), u8]
+        lib.jpeg_encode_scan.restype = ctypes.c_long
+        lib.jpeg_encode_scan.argtypes = [
+            i16, ctypes.c_long, ctypes.c_int, u8, ctypes.c_int, u8, u8,
+            ctypes.c_long]
     return lib
 
 

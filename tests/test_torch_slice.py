@@ -242,6 +242,11 @@ PORT_MODULES = [
     "isdf_tpu_torch.eval.objects", "isdf_tpu_torch.serve",
     "isdf_tpu_torch.utils.checkpoint", "isdf_tpu_torch.utils.mesh3d",
     "isdf_tpu_torch.utils.native", "isdf_tpu_torch.vis.mesh_export",
+    "isdf_tpu_torch.utils.image_io", "isdf_tpu_torch.utils.trajectory",
+    "isdf_tpu_torch.data.sdf_util", "isdf_tpu_torch.data.fixtures",
+    "isdf_tpu_torch.data.live", "isdf_tpu_torch.data.ros_node",
+    "isdf_tpu_torch.data.arkit", "isdf_tpu_torch.data.assets",
+    "isdf_tpu_torch.data.replicaCAD_gt_sdf",
 ]
 
 
@@ -255,7 +260,8 @@ def test_port_imports_neither_jax_nor_isdf_tpu():
     code = ("import sys\n"
             f"for m in {PORT_MODULES!r}:\n    __import__(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'isdf_tpu', 'optax')]\n"
+            "('jax', 'jaxlib', 'isdf_tpu', 'optax', 'cv2', 'PIL', "
+            "'matplotlib')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -310,8 +316,10 @@ def test_unported_config_parts_raise():
         Trainer(_small(TConfig).replace(save_slices=True), device="cpu")
     with pytest.raises(NotImplementedError, match="data_parallel"):
         Trainer(_small(TConfig).replace(data_parallel=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="replicaCAD"):
-        Trainer(_small(TConfig).replace(dataset_format="replicaCAD"),
+    # every dataset format of isdf_tpu is ported; an unknown one raises
+    # as it does there
+    with pytest.raises(ValueError, match="unsupported dataset format"):
+        Trainer(_small(TConfig).replace(dataset_format="replicaCADX"),
                 device="cpu")
 
 

@@ -86,11 +86,30 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      steps. (c) and (d) launch K1-ray once a step and lower the loss. It
      prints the per-frame read ms, the fixture write seconds and each
      run's device ms per step;
-  9. print the card, the kernels' JSON line, and the result line.
+  9. multi-scene training, its CLI, SDF slices, the batch runner and the
+     figure readers, the clock pinned: multi_scene_loop on one trainer
+     per synthetic room at K = 1 (300 steps), 2 (600 steps a scene) and
+     4 (300 steps, two scenes joining later): K1-pc once per active
+     scene-step and no other kernel, no bundle for a scene with no active
+     steps, each round billing every active scene the same joint time,
+     each scene's loss and protocol av_l1 falling; the joint device ms per
+     step, per-scene and aggregate steps/s, host wall per round and peak
+     memory printed. Scene A stepped beside B with uneven step counts must
+     give the same bits as a copy of A stepped alone. train_multi on two
+     rooms: config.json, res.json with "rays" and final.ckpt per scene,
+     the checkpoint's query engine held to the trainer's sdf_fn. The CLI
+     with save.save_slices=1: six PNGs per save mark, the last equal to
+     sdf_colormap of sdf_fn on the planes, then gt and diff slices from
+     the analytic GT. batch.run_jobs on two seeded jobs over the
+     ReplicaCAD fixture of phase 8 (K1-ray): no job None, config.json,
+     res.json and vox_res.json in each run directory, figs' readers on
+     them, a two-row slice comparison;
+ 10. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -1337,9 +1356,10 @@ def _camera_frames(torch, cam, n):
     return out
 
 
-def data_phase(torch):
-    """The real-data formats at full width (phase 8). Returns its
-    readings."""
+def data_phase(torch, root):
+    """The real-data formats at full width (phase 8), their files written
+    under ``root``. Returns its readings and the ReplicaCAD fixture's
+    config path (phase 9 runs the batch runner on it)."""
     import threading
 
     import numpy as np
@@ -1356,128 +1376,127 @@ def data_phase(torch):
         "the image codec's native library did not build"
     calls0 = dict(native.CALLS)
     out = {}
-    with tempfile.TemporaryDirectory() as root:
-        # (a) ReplicaCAD at replicaCAD.json's camera
-        t = time.perf_counter()
-        fx_cfg = FX.write_replicaCAD_fixture(
-            os.path.join(root, "rc"), n_frames=90, H=680, W=1200,
-            hfov_deg=90.0, eval_times=(1.0, 2.0), eval_samples=200000,
-            device="cuda")
-        out["replicaCAD_write_s"] = time.perf_counter() - t
-        fc = load_config(fx_cfg)
-        out["replicaCAD_read_ms"] = _read_ms(ReplicaDataset(fc.seq_dir, fc))
-        print(f"data[replicaCAD fixture]: written in "
-              f"{out['replicaCAD_write_s']:.2f} s, a 1200x680 frame (depth "
-              f"+ colour PNG) read in {out['replicaCAD_read_ms']:.2f} ms",
-              flush=True)
-        summary, vox, tr = _fixture_cli(
-            torch, "replicaCAD", "replicaCAD.json",
-            [f"dataset.seq_dir={fc.seq_dir}",
-             f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
-             f"eval.eval_pts_root={fc.eval_pts_root}",
-             "eval.do_vox_comparison=1"], 660, (1.0, 2.0))
-        assert (tr.H, tr.W) == (680, 1200)
-        last = vox[max(vox, key=float)]
-        assert "objects" in last and len(last["objects"]["l1"]) == 4
-        assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
-            f"replicaCAD: final visible av_l1 {last['rays']['vis']}"
-        out["replicaCAD"] = summary
-        del tr
+    # (a) ReplicaCAD at replicaCAD.json's camera
+    t = time.perf_counter()
+    rc_cfg = FX.write_replicaCAD_fixture(
+        os.path.join(root, "rc"), n_frames=90, H=680, W=1200,
+        hfov_deg=90.0, eval_times=(1.0, 2.0), eval_samples=200000,
+        device="cuda")
+    out["replicaCAD_write_s"] = time.perf_counter() - t
+    fc = load_config(rc_cfg)
+    out["replicaCAD_read_ms"] = _read_ms(ReplicaDataset(fc.seq_dir, fc))
+    print(f"data[replicaCAD fixture]: written in "
+          f"{out['replicaCAD_write_s']:.2f} s, a 1200x680 frame (depth "
+          f"+ colour PNG) read in {out['replicaCAD_read_ms']:.2f} ms",
+          flush=True)
+    summary, vox, tr = _fixture_cli(
+        torch, "replicaCAD", "replicaCAD.json",
+        [f"dataset.seq_dir={fc.seq_dir}",
+         f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
+         f"eval.eval_pts_root={fc.eval_pts_root}",
+         "eval.do_vox_comparison=1"], 660, (1.0, 2.0))
+    assert (tr.H, tr.W) == (680, 1200)
+    last = vox[max(vox, key=float)]
+    assert "objects" in last and len(last["objects"]["l1"]) == 4
+    assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
+        f"replicaCAD: final visible av_l1 {last['rays']['vis']}"
+    out["replicaCAD"] = summary
+    del tr
 
-        # (b) a ScanNet export at 640x480
-        t = time.perf_counter()
-        fx_cfg = FX.write_scannet_fixture(
-            os.path.join(root, "sn"), n_frames=45, H=480, W=640,
-            eval_times=(0.5, 1.4), eval_samples=200000, device="cuda")
-        out["ScanNet_write_s"] = time.perf_counter() - t
-        fc = load_config(fx_cfg)
-        out["ScanNet_read_ms"] = _read_ms(ScanNetDataset(fc.scannet_dir, fc))
-        print(f"data[ScanNet fixture]: written in {out['ScanNet_write_s']:.2f}"
-              f" s, a 640x480 frame (depth PNG + colour JPEG) read in "
-              f"{out['ScanNet_read_ms']:.2f} ms", flush=True)
-        summary, vox, tr = _fixture_cli(
-            torch, "ScanNet", "scannet.json",
-            [f"dataset.seq_dir={fc.seq_dir}",
-             f"dataset.scannet_dir={fc.scannet_dir}",
-             f"dataset.intrinsics_file={fc.intrinsics_file}",
-             f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
-             f"eval.eval_pts_root={fc.eval_pts_root}",
-             "eval.do_vox_comparison=1"], 450, (0.5, 1.4))
-        with open(fc.intrinsics_file) as f:
-            fx_txt = float(f.readline().split("=")[1])
-        assert (tr.H, tr.W) == (480, 640) and tr.fx == fx_txt, \
-            "ScanNet: the camera is not the scene info txt's"
-        probe = np.random.default_rng(0).uniform(-3, 3, (20000, 3))
-        assert np.nanmin(tr.gt_sdf_fn(probe)) >= 0.0, "ScanNet: GT not |grid|"
-        last = vox[max(vox, key=float)]
-        assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
-            f"ScanNet: final visible av_l1 {last['rays']['vis']}"
-        out["ScanNet"] = summary
-        del tr
+    # (b) a ScanNet export at 640x480
+    t = time.perf_counter()
+    fx_cfg = FX.write_scannet_fixture(
+        os.path.join(root, "sn"), n_frames=45, H=480, W=640,
+        eval_times=(0.5, 1.4), eval_samples=200000, device="cuda")
+    out["ScanNet_write_s"] = time.perf_counter() - t
+    fc = load_config(fx_cfg)
+    out["ScanNet_read_ms"] = _read_ms(ScanNetDataset(fc.scannet_dir, fc))
+    print(f"data[ScanNet fixture]: written in {out['ScanNet_write_s']:.2f}"
+          f" s, a 640x480 frame (depth PNG + colour JPEG) read in "
+          f"{out['ScanNet_read_ms']:.2f} ms", flush=True)
+    summary, vox, tr = _fixture_cli(
+        torch, "ScanNet", "scannet.json",
+        [f"dataset.seq_dir={fc.seq_dir}",
+         f"dataset.scannet_dir={fc.scannet_dir}",
+         f"dataset.intrinsics_file={fc.intrinsics_file}",
+         f"dataset.gt_sdf_dir={fc.gt_sdf_dir}",
+         f"eval.eval_pts_root={fc.eval_pts_root}",
+         "eval.do_vox_comparison=1"], 450, (0.5, 1.4))
+    with open(fc.intrinsics_file) as f:
+        fx_txt = float(f.readline().split("=")[1])
+    assert (tr.H, tr.W) == (480, 640) and tr.fx == fx_txt, \
+        "ScanNet: the camera is not the scene info txt's"
+    probe = np.random.default_rng(0).uniform(-3, 3, (20000, 3))
+    assert np.nanmin(tr.gt_sdf_fn(probe)) >= 0.0, "ScanNet: GT not |grid|"
+    last = vox[max(vox, key=float)]
+    assert last["rays"]["vis"]["av_l1"] < DATA_AV_L1, \
+        f"ScanNet: final visible av_l1 {last['rays']['vis']}"
+    out["ScanNet"] = summary
+    del tr
 
-        # (c) a recording in the Franka offline format, then the offline
-        # config on it
-        cfg = load_config(os.path.join(CONFIG_DIR,
-                                       "realsense_franka_offline.json"))
-        frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
+    # (c) a recording in the Franka offline format, then the offline
+    # config on it
+    cfg = load_config(os.path.join(CONFIG_DIR,
+                                   "realsense_franka_offline.json"))
+    frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
 
-        class Camera:
-            """A live camera's frames: depth in mm, as a RealSense gives
-            it."""
+    class Camera:
+        """A live camera's frames: depth in mm, as a RealSense gives
+        it."""
 
-            def __len__(self):
-                return len(frames)
+        def __len__(self):
+            return len(frames)
 
-            def __getitem__(self, i):
-                d, T, img = frames[i]
-                return {"depth": d.astype(np.float32), "T": T, "image": img}
+        def __getitem__(self, i):
+            d, T, img = frames[i]
+            return {"depth": d.astype(np.float32), "T": T, "image": img}
 
-        rec = os.path.join(root, "franka")
-        t = time.perf_counter()
-        record_frames(StreamDataset(Camera(), fps=cfg.fps), rec,
-                      n_frames=LIVE_FRAMES, fps=cfg.fps)
-        out["franka_record_s"] = time.perf_counter() - t
-        # the shipped eval.do_eval = 1 needs a GT SDF, which a recording
-        # lacks: isdf_tpu raises at the first timed eval there too
-        # (ROADMAP C)
-        cfg = load_config(os.path.join(CONFIG_DIR,
-                                       "realsense_franka_offline.json"),
-                          overrides=[f"dataset.seq_dir={rec}",
-                                     "eval.do_eval=0"])
-        out["franka_offline"] = _run_cfg(torch, "realsense_franka_offline",
-                                         cfg, make_dataset(cfg), 300)
+    rec = os.path.join(root, "franka")
+    t = time.perf_counter()
+    record_frames(StreamDataset(Camera(), fps=cfg.fps), rec,
+                  n_frames=LIVE_FRAMES, fps=cfg.fps)
+    out["franka_record_s"] = time.perf_counter() - t
+    # the shipped eval.do_eval = 1 needs a GT SDF, which a recording
+    # lacks: isdf_tpu raises at the first timed eval there too
+    # (ROADMAP C)
+    cfg = load_config(os.path.join(CONFIG_DIR,
+                                   "realsense_franka_offline.json"),
+                      overrides=[f"dataset.seq_dir={rec}",
+                                 "eval.do_eval=0"])
+    out["franka_offline"] = _run_cfg(torch, "realsense_franka_offline",
+                                     cfg, make_dataset(cfg), 300)
 
-        # (d) live frames dropped into realsense.json's live_dir
-        live_dir = os.path.join(root, "live")
-        os.makedirs(live_dir)
-        cfg = load_config(os.path.join(CONFIG_DIR, "realsense.json"),
-                          overrides=[f"dataset.live_dir={live_dir}",
-                                     "model.embedding.n_embed_funcs=5"])
-        frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
-        stop = threading.Event()
+    # (d) live frames dropped into realsense.json's live_dir
+    live_dir = os.path.join(root, "live")
+    os.makedirs(live_dir)
+    cfg = load_config(os.path.join(CONFIG_DIR, "realsense.json"),
+                      overrides=[f"dataset.live_dir={live_dir}",
+                                 "model.embedding.n_embed_funcs=5"])
+    frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
+    stop = threading.Event()
 
-        def writer():
-            i = 0
-            while not stop.is_set():
-                d, T, img = frames[i % len(frames)]
-                tmp = os.path.join(live_dir, f".tmp{i}.npz")
-                np.savez(tmp, depth=d, T=T, image=img)
-                os.replace(tmp, os.path.join(live_dir, f"frame{i:06d}.npz"))
-                i += 1
-                stop.wait(1.0 / cfg.fps)
+    def writer():
+        i = 0
+        while not stop.is_set():
+            d, T, img = frames[i % len(frames)]
+            tmp = os.path.join(live_dir, f".tmp{i}.npz")
+            np.savez(tmp, depth=d, T=T, image=img)
+            os.replace(tmp, os.path.join(live_dir, f"frame{i:06d}.npz"))
+            i += 1
+            stop.wait(1.0 / cfg.fps)
 
-        th = threading.Thread(target=writer, daemon=True)
-        th.start()
-        ds = make_dataset(cfg)
-        try:
-            out["realsense_live"] = _run_cfg(torch, "realsense live", cfg,
-                                             ds, 300)
-        finally:
-            stop.set()
-            th.join(timeout=10)
-            ds.source.close()
-        assert not ds.source.proc.is_alive(), "the live watcher is alive"
-        assert not th.is_alive(), "the frame writer is alive"
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    ds = make_dataset(cfg)
+    try:
+        out["realsense_live"] = _run_cfg(torch, "realsense live", cfg,
+                                         ds, 300)
+    finally:
+        stop.set()
+        th.join(timeout=10)
+        ds.source.close()
+    assert not ds.source.proc.is_alive(), "the live watcher is alive"
+    assert not th.is_alive(), "the frame writer is alive"
 
     served = native.CALLS["image_codec"] - calls0["image_codec"]
     fallback = native.CALLS["image_codec_numpy"] - calls0["image_codec_numpy"]
@@ -1486,7 +1505,7 @@ def data_phase(torch):
     assert served > 0 and fallback == 0, \
         "the native image codec did not serve every read and write"
     out["codec_native_images"] = served
-    return out
+    return out, rc_cfg
 
 
 POSE_STEPS = 1200
@@ -1604,6 +1623,404 @@ def pose_phase(torch):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multi-scene lockstep training, its CLI, SDF slices, the batch
+# runner and the figure readers, at full width with the clock pinned
+# ---------------------------------------------------------------------------
+
+MULTI_SIM_DT = 1.0 / 300
+# (label, synthetic rooms, steps per scene, start times in s of fleet clock)
+LOCKSTEP_RUNS = (
+    ("K=1", ("room_a",), 300, None),
+    ("K=2", ("room_a", "room_b"), 600, None),
+    # the late scenes join while the first two still run: rounds 8 and 15
+    # of their 30
+    ("K=4", ("room_a", "room_b", "room_c", "room_a"), 300,
+     (0.0, 0.0, 0.25, 0.5)),
+)
+# uneven per-round step counts of scene A beside B, for solo equivalence
+SOLO_ROUNDS = ((7, 3), (0, 10), (10, 4), (10, 10), (3, 0))
+SLICE_STEPS, SLICE_PERIOD = 600, 0.5
+BATCH_STEPS, BATCH_SIM_DT = 220, 0.01   # 2.2 s of sim time: both vox marks
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _room_cfg(room, sets):
+    from isdf_tpu_torch.utils.config import load_config
+    return load_config(CONFIG, overrides=[f"dataset.seq_dir=/synthetic/{room}",
+                                          *sets])
+
+
+def _lockstep(torch, label, rooms, steps, start_times, sets, dev):
+    """multi_scene_loop on one trainer per room (seeds 1, 2, ...), the
+    stepper's clock pinned. Checks K1-pc once per active scene-step and no
+    other kernel; no train_bundle call for a scene with no active steps;
+    every round billing each active scene the same joint time and idle
+    scenes nothing; each scene's loss and protocol av_l1 falling. Returns
+    its readings."""
+    import numpy as np
+
+    from isdf_tpu_torch.engine.loop import _timed_eval
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.parallel.multi_scene import (MultiSceneStepper,
+                                                     multi_scene_loop)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        # the last run's trainers sit in reference cycles (the spies)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trainers = [Trainer(_room_cfg(r, sets), seed=1 + i, device=dev)
+                for i, r in enumerate(rooms)]
+    resident = torch.cuda.memory_allocated() / 1e9 if cuda else None
+    K = len(trainers)
+    l1_0 = []
+    for tr in trainers:
+        tr.dataset[0]
+        l1_0.append(_timed_eval(tr, None)["rays"]["av_l1"])
+    stepper = MultiSceneStepper(trainers)
+    stepper._per_step_device_s, stepper._bill_exact = MULTI_SIM_DT, True
+    called = []
+    for i, tr in enumerate(trainers):
+        def spy(*a, _f=tr.fns.train_bundle, _i=i, **k):
+            called[-1].append(_i)
+            return _f(*a, **k)
+        tr.fns.train_bundle = spy
+    rounds, losses = [], [[] for _ in trainers]
+    run_steps = stepper.run_steps
+
+    def recording_run_steps(n, n_actives=None):
+        called.append([])
+        t_before = [tr.tot_step_time for tr in trainers]
+        dev0, t0 = stepper.measured_s, time.perf_counter()
+        out = run_steps(n, n_actives=n_actives)
+        wall = time.perf_counter() - t0
+        rounds.append(dict(
+            n_actives=list(n_actives), wall_s=wall,
+            device_s=stepper.measured_s - dev0,
+            billed=[tr.tot_step_time - t for tr, t in zip(trainers,
+                                                          t_before)]))
+        for i, sc in enumerate(out):
+            v = sc["total_loss"]
+            losses[i].extend(v[~np.isnan(v)].tolist())
+        return out
+
+    stepper.run_steps = recording_run_steps
+    reset_launches()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    out = multi_scene_loop(trainers, max_steps=steps,
+                           start_times=start_times, stepper=stepper)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    total = sum(o["steps"] for o in out)
+    assert [o["steps"] for o in out] == [steps] * K, f"{label}: {out}"
+    assert launches["K1-pc"] == total, \
+        f"{label}: {launches['K1-pc']} K1-pc launches in {total} steps"
+    assert all(v == 0 for k, v in launches.items() if k != "K1-pc"), \
+        f"{label}: other kernels ran: {launches}"
+    for r, c in zip(rounds, called):
+        assert c == [i for i, n in enumerate(r["n_actives"]) if n > 0], \
+            f"{label}: scenes {c} ran in a round of {r['n_actives']}"
+        billed = {round(b, 12) for b, n in zip(r["billed"], r["n_actives"])
+                  if n > 0}
+        assert len(billed) == 1, f"{label}: uneven joint billing {r}"
+        assert all(b == 0.0 for b, n in zip(r["billed"], r["n_actives"])
+                   if n == 0), f"{label}: an idle scene was billed"
+    if start_times:
+        for i, s in enumerate(start_times):
+            if s > 0:
+                assert rounds[0]["n_actives"][i] == 0, \
+                    f"{label}: scene {i} ran before its start"
+    summary = dict(scenes=K, steps=[o["steps"] for o in out],
+                   rounds=len(rounds), wall_s=wall,
+                   keyframes=[o["n_keyframes"] for o in out])
+    for i, (tr, ls) in enumerate(zip(trainers, losses)):
+        n = max(len(ls) // 10, 1)
+        first, last = sum(ls[:n]) / n, sum(ls[-n:]) / n
+        l1 = _timed_eval(tr, None)["rays"]["av_l1"]
+        summary[f"scene{i}"] = dict(loss_first=first, loss_last=last,
+                                    av_l1_before=l1_0[i], av_l1_after=l1)
+        assert last < first, f"{label}: scene {i}'s loss did not fall"
+        assert l1 < l1_0[i], f"{label}: scene {i}'s av_l1 did not fall"
+    full = [r for r in rounds if all(n > 0 for n in r["n_actives"])]
+    ms = [1e3 * r["device_s"] / max(r["n_actives"]) for r in full]
+    round_s = sum(r["device_s"] for r in full) / len(full)
+    steps_round = sum(max(r["n_actives"]) for r in full) / len(full)
+    summary.update(
+        full_rounds=len(full),
+        joint_device_ms_per_step=sum(ms) / len(ms),
+        scene_steps_per_s_device=steps_round / round_s,
+        aggregate_steps_per_s_device=K * steps_round / round_s,
+        host_wall_ms_per_round=1e3 * sum(r["wall_s"] for r in full)
+        / len(full),
+        aggregate_steps_per_s_wall=total / wall,
+        memory_allocated_after_setup_gb=resident,
+        max_memory_allocated_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                 if cuda else None))
+    print(f"multi[{label}]: {json.dumps(summary)}", flush=True)
+    print(f"multi[{label}]: launches {launches}", flush=True)
+    return summary
+
+
+def _solo_equivalence(torch, sets, dev):
+    """Scene A stepped by MultiSceneStepper beside B with uneven step
+    counts against a copy of A stepped alone by the same counts: the same
+    bits in every parameter, optimiser moment and arena priority."""
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.parallel.multi_scene import MultiSceneStepper
+    trs = [Trainer(_room_cfg(r, sets), seed=s, device=dev)
+           for r, s in (("room_a", 1), ("room_b", 2), ("room_a", 1))]
+    for tr in trs:
+        for fid in (0, 40, 80):
+            tr.last_is_keyframe = True
+            tr.add_frame(tr.get_data([fid])[0])
+    a, b, solo = trs
+    stepper = MultiSceneStepper([a, b])
+    for na, nb in SOLO_ROUNDS:
+        stepper.run_steps(10, n_actives=[na, nb])
+        if na:
+            solo.run_steps(na)
+    _sync(torch, dev)
+
+    def state(t):
+        return dict(
+            [(f"params.{k}", t.params[k]) for k in t.params]
+            + [(f"opt.{m}.{k}", t.opt_state[m][k]) for m in ("mu", "nu")
+               for k in t.params]
+            + [("frame_avg_loss", t.buffer.frame_avg_loss),
+               ("loss_approx", t.buffer.loss_approx)])
+
+    sa, ss = state(a), state(solo)
+    differ = [k for k in sa if not torch.equal(sa[k], ss[k])]
+    steps = sum(na for na, _ in SOLO_ROUNDS)
+    print(f"multi[solo equivalence]: scene A {a.steps_taken} steps beside "
+          f"B ({b.steps_taken}) against alone ({solo.steps_taken}): "
+          f"{len(sa) - len(differ)} of {len(sa)} tensors the same bits",
+          flush=True)
+    assert a.steps_taken == solo.steps_taken == steps
+    assert not differ, f"scene A beside B differs from A alone in {differ}"
+
+
+def _train_multi_cli(torch, root, sets, dev):
+    """The multi-scene CLI on two rooms, its loop's stepper pinned. Checks
+    each scene_<i>/ (config.json, res.json with the protocol's "rays",
+    final.ckpt), and the checkpoint in the query engine against the
+    trainer's sdf_fn."""
+    import numpy as np
+
+    from isdf_tpu_torch import serve
+    from isdf_tpu_torch.parallel import multi_scene as MS
+    from isdf_tpu_torch.train.train_multi import main as cli
+    second = os.path.join(root, "room_b.json")
+    with open(CONFIG) as f:
+        cfg = json.load(f)
+    cfg["dataset"]["seq_dir"] = "/synthetic/room_b"
+    with open(second, "w") as f:
+        json.dump(cfg, f)
+    seen, orig = {}, MS.multi_scene_loop
+
+    def pinned(trainers, **kw):
+        seen["trainers"] = trainers
+        st = MS.MultiSceneStepper(trainers)
+        st._per_step_device_s, st._bill_exact = MULTI_SIM_DT, True
+        return orig(trainers, stepper=st, **kw)
+
+    out_dir = os.path.join(root, "train_multi")
+    args = ["--config", CONFIG, "--config", second, "--save_path", out_dir,
+            "--max_steps", "300", "--seed", "1"]
+    for s in sets:
+        args += ["--set", s]
+    if dev == "cpu":
+        args += ["--device", "cpu"]
+    MS.multi_scene_loop = pinned
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = cli(args)
+    finally:
+        MS.multi_scene_loop = orig
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    assert launches["K1-pc"] == sum(o["steps"] for o in out) == 600, \
+        f"train_multi: launches {launches}"
+    pts = np.random.default_rng(0).uniform(-2.0, 2.0, (20000, 3)).astype(
+        np.float32)
+    errs, l1s = [], []
+    for i, tr in enumerate(seen["trainers"]):
+        sdir = os.path.join(out_dir, f"scene_{i}")
+        assert sorted(os.listdir(sdir)) == ["config.json", "final.ckpt",
+                                            "res.json"], os.listdir(sdir)
+        with open(os.path.join(sdir, "res.json")) as f:
+            res = json.load(f)
+        (entry,) = res["sdf_eval"].values()
+        assert set(entry["rays"]) == {"av_l1", "binned_l1",
+                                      "l1_chomp_costs"}
+        assert res["steps"] == 300
+        l1s.append(entry["rays"]["av_l1"])
+        eng = serve.SDFQueryEngine.from_checkpoint(
+            os.path.join(sdir, "final.ckpt"), device=dev)
+        errs.append(float(np.abs(eng.sdf(pts) - tr.sdf_fn(pts)).max()))
+    print(f"multi[train_multi]: {wall:.1f} s wall with two checkpoints, "
+          f"launches {launches}; final av_l1 {l1s}; engine vs sdf_fn max "
+          f"err {errs} (tol {TOL_HTTP_SDF})", flush=True)
+    assert max(errs) <= TOL_HTTP_SDF, "train_multi: engine != sdf_fn"
+    return dict(wall_s=wall, engine_err=errs, av_l1=l1s)
+
+
+def _slices_cli(torch, root, sets, dev):
+    """The trainer CLI with save.save_slices: six pred PNGs per save mark,
+    read back through image_io; the last mark's equal to sdf_colormap of
+    the trainer's sdf_fn on the planes; then gt and diff slices once from
+    the analytic GT."""
+    import numpy as np
+
+    from isdf_tpu_torch.train.train import main as cli
+    from isdf_tpu_torch.utils import image_io as IO
+    from isdf_tpu_torch.vis import slices as SL
+    seen, orig = [], SL.write_slices
+
+    def spy(trainer, path, prefix="", **kw):
+        planes = SL.slice_planes(trainer, 6)
+        img = SL.sdf_colormap(trainer.sdf_fn(planes.reshape(-1, 3)).reshape(
+            planes.shape[:-1]))
+        seen.append((prefix, [np.take(img, s, axis=1) for s in range(6)],
+                     trainer))
+        return orig(trainer, path, prefix=prefix, **kw)
+
+    d = os.path.join(root, "slices_run")
+    args = ["--config", CONFIG, "--save_path", d, "--max_steps",
+            str(SLICE_STEPS), "--sim_dt", str(MULTI_SIM_DT), "--set",
+            "save.save_slices=1", "--set", f"save.save_period={SLICE_PERIOD}"]
+    for s in sets:
+        args += ["--set", s]
+    if dev == "cpu":
+        args += ["--device", "cpu"]
+    SL.write_slices = spy
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = cli(args)
+    finally:
+        SL.write_slices = orig
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    assert launches["K1-pc"] == res.steps, f"slices: launches {launches}"
+    marks = [p for p, _, _ in seen]
+    # the loop's marks: every multiple of the period the clock passed
+    n_marks = sum(1 for k in range(1, 1000)
+                  if res.tot_step_time > k * SLICE_PERIOD)
+    assert len(marks) == n_marks >= 2, f"slices: marks {marks}"
+    names = sorted(os.listdir(os.path.join(d, "slices")))
+    assert names == sorted(f"{p}pred_{s}.png" for p in marks
+                           for s in range(6)), names
+    for p, imgs, _ in seen:
+        for s in range(6):
+            back = IO.imread(os.path.join(d, "slices", f"{p}pred_{s}.png"))
+            assert back.shape == (imgs[s].shape[0], imgs[s].shape[1], 3)
+    p, imgs, tr = seen[-1]
+    for s in range(6):
+        back = IO.imread(os.path.join(d, "slices", f"{p}pred_{s}.png"))
+        assert np.array_equal(back[..., ::-1], imgs[s]), \
+            f"slices: {p}pred_{s}.png is not the colormap of sdf_fn"
+    # gt and diff once, from the analytic GT of the synthetic room
+    gdir = os.path.join(root, "slices_gt")
+    t1 = time.perf_counter()
+    SL.write_slices(tr, gdir, include_gt=True, include_diff=True)
+    gt_s = time.perf_counter() - t1
+    planes = SL.slice_planes(tr, 6)
+    gt = SL.sdf_colormap(tr.gt_sdf_fn(planes.reshape(-1, 3).cpu().numpy()
+                                      ).reshape(planes.shape[:-1]))
+    assert sorted(os.listdir(gdir)) == sorted(
+        f"{k}_{s}.png" for k in ("pred", "gt", "diff") for s in range(6))
+    for s in range(6):
+        back = IO.imread(os.path.join(gdir, f"gt_{s}.png"))[..., ::-1]
+        assert np.array_equal(back, np.take(gt, s, axis=1)), \
+            f"slices: gt_{s}.png is not the colormap of the analytic SDF"
+    out = dict(marks=marks, wall_s=wall, gt_diff_write_s=gt_s,
+               steps=res.steps)
+    print(f"slices: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _batch(torch, root, fixture_cfg, dev):
+    """batch.run_jobs over nruns_per_seq on the ReplicaCAD fixture: two
+    seeded jobs on K1-ray, each loop's clock pinned; every job's result
+    and run files; figs' readers on the run directories; a two-row slice
+    comparison."""
+    import numpy as np
+
+    from isdf_tpu_torch.engine import loop as LOOP
+    from isdf_tpu_torch.eval import figs
+    from isdf_tpu_torch.train import batch
+    from isdf_tpu_torch.utils import image_io as IO
+    with open(fixture_cfg) as f:
+        base = json.load(f)
+    seq_dir, gt_dir = base["dataset"]["seq_dir"], base["dataset"][
+        "gt_sdf_dir"]
+    jobs = batch.nruns_per_seq(base, [seq_dir], 2, gt_sdf_dirs=[gt_dir])
+    seen, orig = [], LOOP.train_loop
+
+    def pinned(trainer, **kw):
+        trainer._per_step_device_s, trainer._bill_exact = BATCH_SIM_DT, True
+        seen.append(trainer)
+        return orig(trainer, **kw)
+
+    out_root = os.path.join(root, "batch")
+    LOOP.train_loop = pinned
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = batch.run_jobs(jobs, out_root, max_steps=BATCH_STEPS,
+                                 retries=0, device=dev)
+    finally:
+        LOOP.train_loop = orig
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    assert all(r is not None for r in results.values()), \
+        f"batch: a job failed: {results}"
+    assert launches["K1-ray"] == 2 * BATCH_STEPS and all(
+        v == 0 for k, v in launches.items() if k != "K1-ray"), \
+        f"batch: launches {launches}"
+    for name in results:
+        have = set(os.listdir(os.path.join(out_root, name)))
+        assert {"config.json", "res.json", "vox_res.json"} <= have, have
+    by_seq = figs.runs_by_sequence(out_root)
+    seq = [x for x in seq_dir.split("/") if x][-1]
+    assert list(by_seq) == [seq] and len(by_seq[seq]) == 2, by_seq.keys()
+    t, mean, std = figs.mean_std_curve(by_seq[seq])
+    final = figs.final_values(by_seq[seq])
+    assert np.isfinite(mean).all() and np.isfinite(final).all()
+    cmp_file = os.path.join(root, "slice_comparison.png")
+    figs.slice_comparison([seen[0], seen[0].gt_sdf_fn], cmp_file)
+    img = IO.imread(cmp_file)
+    dim = seen[0].grid_dim
+    assert img.shape == (2 * dim, 3 * dim, 3), img.shape
+    out = dict(jobs=sorted(results), wall_s=wall,
+               vis_av_l1_final_mean_std=final,
+               curve_times=[float(t[0]), float(t[-1])])
+    print(f"batch: {json.dumps(out)}; launches {launches}", flush=True)
+    return out
+
+
+def multi_phase(torch, root, fixture_cfg, sets=(), dev="cuda"):
+    """Phase 9. ``sets`` and ``dev`` cut it down for a rehearsal on the
+    CPU. Returns its readings."""
+    out = {}
+    for label, rooms, steps, starts in LOCKSTEP_RUNS:
+        out[label] = _lockstep(torch, label, rooms, steps, starts, sets, dev)
+    _solo_equivalence(torch, sets, dev)
+    out["train_multi"] = _train_multi_cli(torch, root, sets, dev)
+    out["slices"] = _slices_cli(torch, root, sets, dev)
+    out["batch"] = _batch(torch, root, fixture_cfg, dev)
+    return out
+
+
 F32_SET = "tpu.mm_precision=highest"
 # (label, overrides, kernels launched once a step, steps)
 TRAINER_PATHS = (
@@ -1625,6 +2042,7 @@ TRAINER_PATHS = (
 
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1726,11 +2144,20 @@ def main():
     readings = persistence_phase(torch)
     readings["pose"] = pose_phase(torch)
 
-    # ---- phase 8: the real-data formats ----
-    readings["data"] = data_phase(torch)
+    with tempfile.TemporaryDirectory() as work:
+        # ---- phase 8: the real-data formats ----
+        readings["data"], rc_cfg = data_phase(torch, work)
+        # ---- phase 9: multi-scene training, its CLI, slices, the batch
+        # runner and the figure readers ----
+        t9 = time.perf_counter()
+        readings["multi"] = multi_phase(torch, work, rc_cfg)
+        readings["multi"]["wall_s"] = time.perf_counter() - t9
+    readings["wall_s"] = time.perf_counter() - t_main
+    print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; the script "
+          f"to here: {readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 9: report ----
+    # ---- phase 10: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ Per round:
      tracks the ingested frame against the map (engine/pose.py);
   2. run the remaining budget as one bundle of steps, or one step with
      ``bundle=False`` (the reference's per-step loop);
-  3. at sim-time marks every save.save_period seconds: checkpoints and
-     meshes (save.save_checkpoints, save.save_meshes);
+  3. at sim-time marks every save.save_period seconds: checkpoints, SDF
+     slices and meshes (save.save_checkpoints, save.save_slices,
+     save.save_meshes);
   4. the fixed-point (voxblox-comparable) eval at its pre-baked
      timestamps (eval.do_vox_comparison), into vox_res.json;
   5. timed evals: ``eval_hook``, else with eval.do_eval the reference
@@ -20,7 +21,6 @@ Per round:
 After the last frame, a refinement tail of ``extra_opt_steps`` runs with
 the output noise off, the window drawn from all keyframes and the lr
 cosine-annealed to tail_lr_min; then a final eval of the settled model.
-Slices are not ported (the Trainer refuses save.save_slices).
 """
 
 from __future__ import annotations
@@ -71,8 +71,8 @@ def _mesh_eval(trainer: Trainer, res: Dict, t: int):
 
 
 def _save_marks(trainer: Trainer, save_path: str, save_t: str, t: int):
-    """Checkpoint and mesh at one save mark (reference train.py:196-228);
-    a mesh only after 0.4 s of sim time."""
+    """Checkpoint, slices and mesh at one save mark (reference
+    train.py:196-228); a mesh only after 0.4 s of sim time."""
     cfg = trainer.cfg
     if cfg.save_checkpoints:
         from isdf_tpu_torch.utils import checkpoint as CK
@@ -80,6 +80,10 @@ def _save_marks(trainer: Trainer, save_path: str, save_t: str, t: int):
         os.makedirs(d, exist_ok=True)
         CK.save_checkpoint(os.path.join(d, f"step_{save_t}.ckpt"), trainer,
                            step=t)
+    if cfg.save_slices:
+        from isdf_tpu_torch.vis import slices as SL
+        SL.write_slices(trainer, os.path.join(save_path, "slices"),
+                        prefix=save_t + "_")
     if cfg.save_meshes and trainer.tot_step_time > 0.4:
         from isdf_tpu_torch.vis import mesh_export as ME
         d = os.path.join(save_path, "meshes")

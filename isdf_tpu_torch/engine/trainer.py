@@ -22,16 +22,16 @@ Meshing (``get_sdf_grid_sparse``, ``mesh_rec``, ``write_mesh``), the mesh,
 fixed-point (voxblox-comparable), object and trajectory evals, checkpoints
 (utils/checkpoint.py, isdf_tpu's .npz format) and pose refinement
 (engine/pose.py, ``model.refine_poses``) run as in isdf_tpu, and so do the
-scene frame from ``gt_sdf_dir/mesh.obj`` and the GT SDF grid from
-``gt_sdf_dir/1cm``. Not ported yet: slices (save.save_slices),
-visualisation and data parallelism; a config that asks for them raises.
+scene frame from ``gt_sdf_dir/mesh.obj``, the GT SDF grid from
+``gt_sdf_dir/1cm`` and the SDF slices (vis/slices.py). Not ported yet: the
+viewer and data parallelism; a config that asks for data parallelism
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -47,19 +47,28 @@ from isdf_tpu_torch.ops import geometry as G
 from isdf_tpu_torch.utils import nvcc
 from isdf_tpu_torch.utils.config import Config, load_config
 from isdf_tpu_torch.utils.device import resolve_device
-from isdf_tpu_torch.utils.profiling import StepTimer
+from isdf_tpu_torch.utils.profiling import BundleClock, StepTimer
+
+
+def pinned_dt(n_steps: int, measured: float, per_step_s: float,
+              exact: bool) -> float:
+    """The seconds a bundle of ``n_steps`` bills: its ``measured`` time,
+    or ``per_step_s`` a step where that is set (capped at the measured
+    time unless ``exact``); never below 10 us."""
+    if per_step_s:
+        dt = n_steps * per_step_s
+        if not exact:
+            dt = min(dt, measured)
+    else:
+        dt = measured
+    return max(dt, 1e-5)
 
 
 def check_supported(cfg: Config):
     """Raise on the parts of a config this port does not run yet."""
-    missing = []
     if cfg.data_parallel > 1:
-        missing.append("tpu.data_parallel > 1")
-    if cfg.save_slices:
-        missing.append("save.save_slices")
-    if missing:
         raise NotImplementedError(
-            "not ported to isdf_tpu_torch yet: " + ", ".join(missing))
+            "not ported to isdf_tpu_torch yet: tpu.data_parallel > 1")
 
 
 class Trainer:
@@ -397,42 +406,37 @@ class Trainer:
     def run_steps(self, n_steps: int) -> Dict[str, np.ndarray]:
         """Run ``n_steps`` optimisation steps; advance the sim clock by the
         bundle's device time (scaled by 1/frac_time_perception)."""
-        cuda = self.device.type == "cuda"
-        if cuda:
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        t0 = time.perf_counter()
+        clock = BundleClock(self.device)
         scalars = self.fns.train_bundle(
             self.params, self.opt_state, self.buffer, self.transform_dev,
             self._bundle_seed, float(self.noise_std), n_steps=n_steps,
             lr_scale=float(self.lr_scale), tail=bool(self.tail_mode),
             step0=self.steps_taken)
-        if cuda:
-            ev1.record()
+        clock.stop()
         names = sorted(scalars)
         stacked = torch.stack([scalars[k] for k in names]).cpu().numpy()
         out = {k: stacked[i] for i, k in enumerate(names)}
-        measured = (ev0.elapsed_time(ev1) * 1e-3 if cuda
-                    else time.perf_counter() - t0)
-        self.measured_s += measured
-        if self._per_step_device_s:
-            dt = n_steps * self._per_step_device_s
-            if not self._bill_exact:
-                dt = min(dt, measured)
-            dt = max(dt, 1e-5)
-        else:
-            dt = max(measured, 1e-5)
+        measured = clock.seconds()
+        dt = pinned_dt(n_steps, measured, self._per_step_device_s,
+                       self._bill_exact)
+        self._bill(dt, n_steps, measured)
+        out["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
+        return out
+
+    def _bill(self, dt: float, n_steps: int, measured: float):
+        """Book ``n_steps`` steps that took ``dt`` billed seconds
+        (``measured`` seconds on the clock): the sim clock, the step
+        counters and the rolling timer. Trainer.run_steps and the
+        multi-scene stepper (parallel/multi_scene.py) both book here."""
         billed = dt / self.cfg.frac_time_perception
         if self.cfg.step_rate_cap > 0:
             # bill each step at least 1/cap perception-seconds
             billed = max(billed, n_steps / self.cfg.step_rate_cap)
         self.tot_step_time += billed
+        self.measured_s += measured
         self.steps_since_frame += n_steps
         self.steps_taken += n_steps
         self.step_timer.add("train", dt, n_steps)
-        out["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
-        return out
 
     def perf_summary(self) -> Dict[str, float]:
         return self.step_timer.summary()
@@ -620,6 +624,11 @@ class Trainer:
         from isdf_tpu_torch.vis.mesh_export import write_mesh
         return write_mesh(self, filename)
 
+    def write_slices(self, save_path: str, prefix: str = "", **kw):
+        """SDF slice PNGs (vis/slices.py::write_slices)."""
+        from isdf_tpu_torch.vis.slices import write_slices
+        return write_slices(self, save_path, prefix=prefix, **kw)
+
     def save_checkpoint(self, path: str, step: int = 0):
         from isdf_tpu_torch.utils import checkpoint as CK
         CK.save_checkpoint(path, self, step=step)
@@ -649,21 +658,14 @@ class Trainer:
         n = self.buffer.count
         rows = torch.arange(max(n - n_frames, 0), max(n, 1),
                             device=self.device)
-        cuda = self.device.type == "cuda"
-        if cuda:
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-        t0 = time.perf_counter()
+        clock = BundleClock(self.device)
         self.pose_state, losses = self._pose_step(
             self.params, self.pose_state, self.buffer.depth[rows],
             self.buffer.T_WC[rows], rows, self.fns.dirs, self.transform_dev,
             self._pose_gen, n_steps=n_steps)
-        if cuda:
-            ev1.record()
+        clock.stop()
         ls = losses.cpu().numpy()   # [n_steps + 1], the pre-burst loss first
-        self._last_burst_s = (ev0.elapsed_time(ev1) * 1e-3 if cuda
-                              else time.perf_counter() - t0)
+        self._last_burst_s = clock.seconds()
         self._last_burst_rel_improve = float(
             (ls[0] - ls[-1]) / max(ls[0], 1e-9))
         return float(ls[-1])

@@ -91,16 +91,23 @@ def frame_avg_loss(ray_loss, ray_valid, indices_b, indices_h, indices_w,
     """Per-frame average loss via 8x8 block pooling (reference
     loss.py:208-240), by a summing scatter of per-ray losses and counts
     into the [F, factor, factor] block grid: repeated pixels add up.
-    Returns (loss_approx [F, factor, factor], frame_avg [F])."""
+    Returns (loss_approx [F, factor, factor], frame_avg [F]).
+
+    The scatter is the product of a one-hot [F * factor^2, N] matrix with
+    the (loss, count) pairs, which adds in a fixed order: the same bits in
+    every run (f32 products; the package turns TF32 off). On the card
+    index_add_ adds with atomics in an order that varies from run to run,
+    and the active sampler reads these sums."""
     h_block, w_block = H // factor, W // factor
     block = (indices_b * (factor * factor)
              + (indices_h // h_block).clamp(0, factor - 1) * factor
              + (indices_w // w_block).clamp(0, factor - 1))
     n_seg = n_frames * factor * factor
     w = ray_valid.to(ray_loss.dtype)
-    sums = torch.zeros(n_seg, dtype=ray_loss.dtype, device=ray_loss.device)
-    sums.index_add_(0, block, ray_loss * w)
-    counts = torch.zeros_like(sums).index_add_(0, block, w)
+    seg = torch.arange(n_seg, device=block.device)
+    onehot = (block[None, :] == seg[:, None]).to(ray_loss.dtype)
+    sums, counts = (onehot @ torch.stack([ray_loss * w, w], dim=1)
+                    ).unbind(1)
     loss_approx = (sums / counts.clamp(min=1.0)).reshape(
         n_frames, factor, factor)
     frame_avg = loss_approx.sum(dim=(1, 2)) / (factor * factor)

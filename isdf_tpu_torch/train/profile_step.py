@@ -1,22 +1,26 @@
 #!/usr/bin/env python
 """Where the time of a training step goes on the card.
 
-    python -m isdf_tpu_torch.train.profile_step [SECTION.KEY=VALUE ...]
+    python -m isdf_tpu_torch.train.profile_step [--scenes K] \
+        [SECTION.KEY=VALUE ...]
 
-Runs the online trainer on train/configs/synthetic.json with the given
-config overrides, e.g. tpu.pe_in_kernel=false tpu.use_pallas=true (Trainer
-+ train_loop, simulated clock pinned at 1/300 s per step) for 300 steps, then
-times 200 more steps of the steady training bundle (Trainer.run_steps, 10
-steps per call) twice: once bare, once under torch.profiler tracing the
-card only. Prints the host-clock time per step of both (the difference is
-what tracing costs), the device time per step from the trainer's CUDA
-events, and, read from the exported trace, the kernels by device time and
-the device's idle share: 1 - (union of kernel intervals) / (first kernel
-start to last kernel end).
+Steps K copies of train/configs/synthetic.json with the given config
+overrides, e.g. tpu.pe_in_kernel=false tpu.use_pallas=true, scene i with
+seed 1 + i, in lockstep through parallel/multi_scene.py (K = 1: one
+trainer, the same launches as Trainer.run_steps). The simulated clock is
+pinned at 1/300 s per step. After 300 steps of multi_scene_loop it times
+20 more rounds of 10 steps per scene (MultiSceneStepper.run_steps) twice:
+once bare, once under torch.profiler tracing the card only. Prints, per
+round and per scene-step, the host-clock time of both (the difference is
+what tracing costs), the device time from the stepper's CUDA events and,
+read from the exported trace, the kernels by device time and the device's
+idle share: 1 - (union of kernel intervals) / (first kernel start to last
+kernel end).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import tempfile
@@ -50,31 +54,36 @@ def busy_us(intervals):
 
 
 def main(argv=None):
-    import sys
-
     from torch.profiler import ProfilerActivity, profile
 
-    from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.parallel.multi_scene import (MultiSceneStepper,
+                                                     multi_scene_loop)
     from isdf_tpu_torch.utils.config import load_config
 
-    overrides = list(sys.argv[1:] if argv is None else argv)
-    tr = Trainer(load_config(CONFIG, overrides=overrides or None), seed=1)
-    tr._per_step_device_s = 1.0 / 300
-    tr._bill_exact = True
-    train_loop(tr, max_steps=WARMUP,
-               eval_hook=lambda t: {"sdf_mae": t.dataset.sdf_mae(t.sdf_fn)})
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--scenes", type=int, default=1,
+                        help="copies of the config stepped in lockstep")
+    parser.add_argument("overrides", nargs="*", metavar="SECTION.KEY=VALUE")
+    args = parser.parse_args(argv)
+    K = args.scenes
+    cfg = load_config(CONFIG, overrides=args.overrides or None)
+    trainers = [Trainer(cfg, seed=1 + i) for i in range(K)]
+    stepper = MultiSceneStepper(trainers)
+    stepper._per_step_device_s, stepper._bill_exact = 1.0 / 300, True
+    multi_scene_loop(trainers, max_steps=WARMUP, stepper=stepper)
     n_calls = STEPS // BUNDLE
+    steps = K * STEPS   # scene-steps timed
 
     def timed():
         torch.cuda.synchronize()
-        dev0, t0 = tr.measured_s, time.perf_counter()
+        dev0, t0 = stepper.measured_s, time.perf_counter()
         for _ in range(n_calls):
-            tr.run_steps(BUNDLE)
+            stepper.run_steps(BUNDLE)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, tr.measured_s - dev0
+        return time.perf_counter() - t0, stepper.measured_s - dev0
 
-    tr.run_steps(BUNDLE)
+    stepper.run_steps(BUNDLE)
     wall_bare, dev = timed()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_traced, _ = timed()
@@ -83,12 +92,17 @@ def main(argv=None):
         prof.export_chrome_trace(path)
         ivs = kernel_intervals(path)
 
-    print(f"card: {torch.cuda.get_device_name(0)}; overrides: {overrides}")
-    print(f"steps timed: {STEPS} in bundles of {BUNDLE}")
-    print(f"host wall per step, bare: {1e3 * wall_bare / STEPS:.4f} ms")
-    print(f"host wall per step, traced: {1e3 * wall_traced / STEPS:.4f} ms")
-    print(f"device time per step (CUDA events around bundles, bare): "
-          f"{1e3 * dev / STEPS:.4f} ms")
+    print(f"card: {torch.cuda.get_device_name(0)}; scenes: {K}; "
+          f"overrides: {args.overrides}")
+    print(f"timed: {n_calls} rounds of {BUNDLE} steps per scene "
+          f"({steps} scene-steps)")
+    for what, v in (("host wall, bare", wall_bare),
+                    ("host wall, traced", wall_traced),
+                    ("device time (CUDA events around rounds, bare)", dev)):
+        print(f"{what}: {1e3 * v / n_calls:.4f} ms per round, "
+              f"{1e3 * v / steps:.4f} ms per scene-step")
+    print(f"max memory allocated: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     if not ivs:
         print("the trace holds no device kernels")
         return
@@ -98,15 +112,17 @@ def main(argv=None):
         by_name[name][1] += 1
     kernel_us = sum(v[0] for v in by_name.values())
     window = max(s + d for s, d, _ in ivs) - min(s for s, _, _ in ivs)
-    print(f"kernel time per step: {kernel_us / 1e3 / STEPS:.4f} ms; "
-          f"kernels per step: {len(ivs) / STEPS:.1f}")
-    print(f"traced device window per step: {window / 1e3 / STEPS:.4f} ms; "
-          f"idle share: {1.0 - busy_us(ivs) / window:.4f}")
+    print(f"kernel time: {kernel_us / 1e3 / n_calls:.4f} ms per round, "
+          f"{kernel_us / 1e3 / steps:.4f} ms per scene-step; kernels: "
+          f"{len(ivs) / n_calls:.1f} per round, {len(ivs) / steps:.1f} per "
+          f"scene-step")
+    print(f"traced device window per round: {window / 1e3 / n_calls:.4f} "
+          f"ms; idle share: {1.0 - busy_us(ivs) / window:.4f}")
     print(f"{'device ms/step':>14} {'share':>7} {'calls/step':>10}  kernel")
     for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :20]:
-        print(f"{us / 1e3 / STEPS:14.4f} {us / kernel_us:7.4f} "
-              f"{cnt / STEPS:10.2f}  {name[:90]}")
+        print(f"{us / 1e3 / steps:14.4f} {us / kernel_us:7.4f} "
+              f"{cnt / steps:10.2f}  {name[:90]}")
 
 
 if __name__ == "__main__":

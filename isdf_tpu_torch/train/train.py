@@ -13,8 +13,8 @@ Runs on the CUDA device unless ``--device cpu``. ``-ni`` is the batch
 reference protocol scores the visible region against the GT SDF into
 res.json ("rays"). ``--load_checkpoint`` resumes from a full-state .npz
 (either package's) or loads the weights of a reference torch .pth; the
-save section writes checkpoints and meshes under the save path at sim-time
-marks. Slices (save.save_slices) are not ported yet.
+save section writes checkpoints, SDF slices and meshes under the save path
+at sim-time marks.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-"""Tracing and rolling step-time statistics (isdf_tpu/utils/profiling.py):
-a torch.profiler trace context, and the reference GUI's 20-second compute
-balance readout (isdf_window.py:694-708)."""
+"""Tracing, bundle timing and rolling step-time statistics
+(isdf_tpu/utils/profiling.py): a torch.profiler trace context, the clock
+that times a bundle on its device, and the reference GUI's 20-second
+compute balance readout (isdf_window.py:694-708)."""
 
 from __future__ import annotations
 
@@ -25,6 +26,33 @@ def device_trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class BundleClock:
+    """The measured time of a bundle of launches: CUDA events recorded
+    around them on the card's stream (the reference's own timing,
+    isdf/eval/metrics.py:13-38), the host's wall clock on the CPU.
+
+    Start it before the launches, ``stop()`` after them, and read
+    ``seconds()`` once a fetch of the bundle's results has synced."""
+
+    def __init__(self, device):
+        import torch
+        self._ev = None
+        if device.type == "cuda":
+            self._ev = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+            self._ev[0].record()
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self._ev is not None:
+            self._ev[1].record()
+
+    def seconds(self) -> float:
+        if self._ev is not None:
+            return self._ev[0].elapsed_time(self._ev[1]) * 1e-3
+        return time.perf_counter() - self._t0
 
 
 class StepTimer:

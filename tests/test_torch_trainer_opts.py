@@ -279,5 +279,12 @@ def test_cli_save_and_unported_flags(tmp_path, monkeypatch):
     (run,) = os.listdir(tmp_path / "results" / "isdf_tpu_torch")
     assert os.path.exists(tmp_path / "results" / "isdf_tpu_torch" / run /
                           "res.json")
-    with pytest.raises(NotImplementedError, match="save_slices"):
-        main(_cli_args(tmp_path, "--set", "save.save_slices=1"))
+    # save.save_slices writes six pred PNGs per save mark into slices/
+    res = main(_cli_args(tmp_path, "--save_path", str(tmp_path / "sl"),
+                         "--max_steps", "10", "--grid_dim", "8", "--set",
+                         "save.save_slices=1", "--set",
+                         "save.save_period=0.1"))
+    assert res.tot_step_time > 0.1
+    names = sorted(os.listdir(tmp_path / "sl" / "slices"))
+    assert names and len(names) % 6 == 0
+    assert names[:6] == [f"0.100_pred_{s}.png" for s in range(6)]

@@ -14,9 +14,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      K1-pc, K1-ray, K1-stream (the fused train op), K4 (nearest surface
      point), K2 and K3 (the reverse-fused op, forward and backward), then
      K1-pc, K1-ray, K1-stream, K2 and K3 in their f32-product mode
-     (tpu.mm_precision other than "default") against the plain versions
-     with f32 products; each is also called twice on the same inputs and
-     must give the same bits.
+     (tpu.mm_precision other than "default": split-bf16 tensor-core
+     products, six cross terms) against the plain versions with IEEE f32
+     products; each is also called twice on the same inputs and must give
+     the same bits.
      K4 is held on five inputs (the trainer's, exact ties, ragged M and R,
      one valid surface point, none), must be one launch a call with no
      other device kernel, and is timed beside the port's matmul route for
@@ -29,9 +30,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      K2, K3), two in K1's staged products (accumulator rows g and g + 8
      swapped in the forward epilogue; k_dw dropping the last slab of each
      split), a second in K4 (its merge of the groups preferring the later
-     group on equal minima) and one in the f32 products (the last k-step
-     of each slab dropped) in copies of the sources, build the copies, and
-     require each check to fail on its faulty kernel;
+     group on equal minima) and two in the f32 mode's split products (the
+     hm and mh terms dropped; the hl and lh terms dropped, which shows that
+     TOL_F32 tells six terms from four) in copies of the sources, build
+     the copies, and require each check to fail on its faulty kernel;
   4. drive the online trainer through its entry points (Trainer +
      train_loop) on isdf_tpu_torch/train/configs/synthetic.json with the
      simulated clock pinned, per path: as shipped (pc bounds -> K1-pc);
@@ -67,7 +69,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      one burst must cut its pose error below 0.7x), and the trainer under
      random-walk pose noise with and without model.refine_poses (bursts on
      ingested frames, billed by CUDA events; the arena pose errors
-     printed). Each run counts K1-pc once a step;
+     printed). Each run counts K1-pc once a step. Two pose bursts on the
+     same inputs (the anchored map's two frames, the same draws) must give
+     the same bits;
   8. the real-data formats, through the port's own image codec (whose
      native library must build and serve every read) and fixture writer:
      (a) a ReplicaCAD-format fixture at replicaCAD.json's camera (1200x680,
@@ -135,13 +139,21 @@ TOL_LOSS_REL = 3e-6     # K2/K3 op path: the first step's loss
 # AdamW runs drift apart when their bf16 roundings differ (read: 3.3e-2);
 # it holds both runs to the same training outcome (PERF.md, section 6)
 TOL_LAST_REL = 1e-1
-# The f32-product mode against the plain version with f32 products: both
-# sum IEEE f32 products, in another order. About 10x the largest gap read
-# on the card (PERF.md, section 6): sums 8.4e-8, per-point loss 5.3e-7,
-# gradient blocks 2.2e-6, K2 2.7e-6 (max) and 1.4e-6 (norm); the op path's
-# first loss read 0 (limit: a few float32 ulps), its 200th 2.6e-3.
+# The f32-product mode against the plain version with IEEE f32 products:
+# the kernels sum six split-bf16 terms of each product on the tensor
+# cores, an f32-grade product with other roundings. About 10x the largest
+# gap that the mode's first design (IEEE f32 FMAs) read on the card
+# (PERF.md, section 6): sums 8.4e-8, per-point loss 5.3e-7, gradient blocks
+# 2.2e-6, K2 2.7e-6 (max) and 1.4e-6 (norm); the op path's first loss read
+# 0 (limit: a few float32 ulps), its 200th 2.6e-3. The split design reads
+# 8.4e-8, 9.5e-7, 1.2e-6, 2.9e-6 and 1.5e-6; 1.2e-7 and 9.1e-3.
 TOL_F32 = dict(sums=1e-6, ploss=5e-6, grad=2e-5, raw=3e-5, raw_rms=1.5e-5,
                loss=1e-6, last=3e-2)
+# traces of one measurement, taken again while one comes back short of
+# a kernel's launches (device_ms), and the host time between the traced
+# calls and either edge of the trace
+TRACE_TRIES = 3
+TRACE_PAD_S = 0.02
 
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s
 PEAK_F32 = 67e12        # H100 SXM f32 FLOP/s outside the tensor cores
@@ -200,10 +212,14 @@ PLANTED = (
     ("k_dw last slab", "K1-pc", "mlp_tile.cuh",
      "const int nslab = max(re - rb, 0) / DW_KS;",
      "const int nslab = max(re - rb, 0) / DW_KS - 1;"),
-    # the f32 products drop the last k-step of each slab
-    ("f32 products last k-step", "K1-pc-f32", "mlp_tile.cuh",
-     "for (int k4 = 0; k4 < KS; k4 += 4) {",
-     "for (int k4 = 0; k4 < KS - 4; k4 += 4) {"),
+    # the f32 mode's split products without their hm and mh terms
+    ("f32 split hm mh", "K1-pc-f32", "mlp_tile.cuh",
+     "split_term<0, 1>(acc, a, b); split_term<1, 0>(acc, a, b);  // hm, mh",
+     "// hm, mh dropped"),
+    # ... without their hl and lh terms: four terms, not six
+    ("f32 split hl lh", "K1-pc-f32", "mlp_tile.cuh",
+     "split_term<0, 2>(acc, a, b); split_term<2, 0>(acc, a, b);  // hl, lh",
+     "// hl, lh dropped"),
 )
 
 
@@ -231,18 +247,49 @@ def all_launches():
             cuda_reverse_fused.LAUNCHES)
 
 
-def occupancy(lib):
-    """Resident blocks per SM of K1's phases 1 and 2 in one library's
-    product mode (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+# the device kernels of each MLP library's occupancy query, in its order
+OCCUPANCY = {
+    "train_mlp": ("isdf_train_mlp_occupancy", (
+        "k_train_tile<pc>", "k_train_tile<ray>", "k_train_tile<stream>",
+        "k_dw")),
+    "reverse_fused": ("isdf_rf_occupancy", ("k_rf_forward", "k_rf_vjp_tile",
+                                            "k_dw")),
+}
+
+
+def occupancy(lib, source):
+    """Resident blocks per SM of the device kernels of an MLP library in
+    its product mode (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
-    out = (ctypes.c_int * 4)()
-    fn = lib.isdf_train_mlp_occupancy
+    fn_name, names = OCCUPANCY[source.removesuffix("_f32")]
+    out = (ctypes.c_int * len(names))()
+    fn = getattr(lib, fn_name)
     fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(out)
     assert rc == 0, f"occupancy query failed, CUDA error {rc}"
-    return {"k_train_tile<pc>": out[0], "k_train_tile<ray>": out[1],
-            "k_train_tile<stream>": out[2], "k_dw": out[3]}
+    return dict(zip(names, out))
+
+
+def ptxas_usage(log):
+    """{mangled entry function: "R registers, S B spilled, M B static
+    shared"} from nvcc's -Xptxas -v report."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = f"{int(m.group(1)) + int(m.group(2))} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name] = (f"{m.group(1)} registers, " + out.get(name, "")
+                         + f", {sm.group(1) if sm else 0} B static shared")
+    return out
 
 
 def reset_launches():
@@ -315,7 +362,8 @@ def flop_count(name, model, N, R):
     (nh+1) tangent chain, 2(nh-1) backward chain, 2(nh+1) dW. f32: the
     PE build (K1-pc/ray, 7 per lane), the scores (7 per surface point),
     the tangent contractions and the output head. In the f32-product mode
-    ("-f32") the first count is f32 operations too."""
+    ("-f32") the first count is of f32-grade products, each SPLIT_N bf16
+    products on the tensor cores (or one IEEE f32 FMA chain)."""
     name = name.removesuffix("-f32")
     nh = model.n_layers - 1
     H = model.hidden_size
@@ -392,16 +440,19 @@ def time_ms(torch, fn, reps):
 def traced_kernels(torch, fn, reps):
     """[(start_us, dur_us, name)] of the device kernels of ``reps`` calls
     of ``fn`` (after one untraced call) in a torch.profiler trace of the
-    card."""
+    card, the calls TRACE_PAD_S of host time inside either edge of the
+    trace (the profiler loses launches at the edges; PERF.md, section 6)."""
     from torch.profiler import ProfilerActivity, profile
 
     from isdf_tpu_torch.train.profile_step import kernel_intervals
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
@@ -411,15 +462,25 @@ def traced_kernels(torch, fn, reps):
 def device_ms(torch, name, fn, reps):
     """Device ms per call of ``fn`` spent in the kernel's own launches,
     read from a torch.profiler trace of the card, in all and by device
-    kernel (KERNEL_NAMES)."""
-    ivs = traced_kernels(torch, fn, reps)
+    kernel (KERNEL_NAMES): the traced durations of each summed over
+    ``reps`` calls, over ``reps``. Every call launches each device kernel
+    once. A trace that holds fewer launches of one (the profiler lost
+    events; PERF.md, section 6) is taken again, up to TRACE_TRIES traces;
+    a trace with more, or none that holds them all, fails."""
     names = KERNEL_NAMES[name]
-    parts = {k: [dur for _, dur, n in ivs if k in n] for k in names}
-    for k, durs in parts.items():
-        expect(len(durs) == reps,
-               f"{name}: {len(durs)} traced launches of {k} in {reps} calls")
-    parts = {k: sum(durs) / 1e3 / reps for k, durs in parts.items()}
-    return sum(parts.values()), parts
+    for attempt in range(TRACE_TRIES):
+        ivs = traced_kernels(torch, fn, reps)
+        parts = {k: [dur for _, dur, n in ivs if k in n] for k in names}
+        counts = {k: len(durs) for k, durs in parts.items()}
+        expect(max(counts.values()) <= reps, f"{name}: {counts} traced "
+               f"launches in {reps} calls")
+        if min(counts.values()) == reps:
+            return (sum(sum(d) for d in parts.values()) / 1e3 / reps,
+                    {k: sum(d) / 1e3 / reps for k, d in parts.items()})
+        print(f"{name}: trace {attempt + 1} holds {counts} launches in "
+              f"{reps} calls", flush=True)
+    raise Mismatch(f"{name}: no trace of {TRACE_TRIES} held every launch of "
+                   f"{reps} calls")
 
 
 def rel_err(a, b):
@@ -463,17 +524,27 @@ class Setup:
         call_ms = time_ms(torch, fn, 20)
         ms, parts = device_ms(torch, name, fn, 20)
         plain_ms = time_ms(torch, plain, 3)
+        from isdf_tpu_torch.models.cuda_mlp import SPLIT_TERMS
         fb, ff = flop_count(name, self.model, self.N, self.R)
         nbytes = byte_count(name, self.model, self.N, self.R)
-        t_ops = ((fb + ff) / PEAK_F32 if name.endswith("-f32")
-                 else fb / PEAK_BF16 + ff / PEAK_F32)
         t_bytes = nbytes / PEAK_BYTES
+        extra = {}
+        if name.endswith("-f32"):
+            # the least time for the same f32-grade products: their split
+            # terms at the bf16 rate (IEEE f32 FMAs beside it)
+            t_ops = len(SPLIT_TERMS) * fb / PEAK_BF16 + ff / PEAK_F32
+            extra = dict(split_terms=len(SPLIT_TERMS), fma_bound_ms=1e3 * max(
+                (fb + ff) / PEAK_F32, t_bytes))
+        else:
+            t_ops = fb / PEAK_BF16 + ff / PEAK_F32
         bound_ms = 1e3 * max(t_ops, t_bytes)
         print(f"{name}: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
               f"per wrapper call back to back, CUDA events), plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({(fb + ff) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)",
-              flush=True)
+              f"({(fb + ff) / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)" + (
+                  f"; {extra['split_terms']} split terms a product, IEEE "
+                  f"f32 FMA bound {extra['fma_bound_ms']:.4f} ms"
+                  if extra else ""), flush=True)
         print(f"{name}: device ms by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
         if name.startswith(("K1", "K3")):
@@ -486,7 +557,7 @@ class Setup:
                     replaces=REPLACES[name], launches=0, max_abs_err=max_abs,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    library_ms=None, parts=parts)
+                    library_ms=None, parts=parts, **extra)
 
 
 def tolerances(name):
@@ -668,9 +739,13 @@ def check_k4(torch, s, timed=True):
     print("K4: geometry " + json.dumps(
         {k: v for k, v in geo.items() if k != "rows"})
         + f", group 0 scans {geo['rows'][0]}", flush=True)
-    # one call is one launch of k_closest_surface and nothing else
-    names = [n for _, _, n in traced_kernels(
-        torch, lambda: CB.closest_surface_ix(pts, surf, sv), 1)]
+    # one call is one launch of k_closest_surface and nothing else (a
+    # trace that lost the call's events is taken again, as in device_ms)
+    for _ in range(TRACE_TRIES):
+        names = [n for _, _, n in traced_kernels(
+            torch, lambda: CB.closest_surface_ix(pts, surf, sv), 1)]
+        if names:
+            break
     print(f"K4: device kernels of one call: {names}", flush=True)
     expect(len(names) == 1 and "k_closest_surface" in names[0],
            f"K4: one call launched {names}")
@@ -1564,6 +1639,22 @@ def pose_phase(torch):
     tr.last_is_keyframe = True
     tr.add_frame(tr.get_data([1])[0])
     err0 = float(np.abs(tr.buffer.T_WC[1].cpu().numpy() - ds.poses[1]).max())
+    # two bursts over both frames on the same draws: the same bits (the
+    # segment sums add in a fixed order)
+    rows = torch.arange(2, device="cuda")
+    draws = tr._pose_step.draw(torch.Generator(device="cuda").manual_seed(3),
+                               2, tr.H, tr.W, "cuda")
+    bursts = [tr._pose_step.solve(
+        tr.params, torch.zeros_like(tr.pose_state.twists),
+        tr.buffer.depth[rows], tr.buffer.T_WC[rows], rows, tr.fns.dirs,
+        tr.transform_dev, draws, n_steps=10) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*bursts))
+    out["repeat"] = dict(same_bits=same, max_twist=float(
+        bursts[0][0].abs().max()), loss=bursts[0][1].tolist())
+    print(f"pose [repeat]: two 10-iteration bursts over frames 0 and 1 on "
+          f"the same draws: the same bits {same} (max |twist| "
+          f"{out['repeat']['max_twist']:.3e})", flush=True)
+    assert same, "two pose bursts on the same inputs gave different bits"
     tr.refine_poses_step(n_steps=60)
     tr.apply_pose_corrections()
     err1 = float(np.abs(tr.buffer.T_WC[1].cpu().numpy() - ds.poses[1]).max())
@@ -2060,13 +2151,12 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {SOURCES}",
           flush=True)
     for (_, name), info in nvcc.BUILD_INFO.items():  # csrc/ only so far
-        for line in info["nvcc_log"].splitlines():
-            if any(k in line for k in ("entry function", "registers",
-                                        "spill")):
-                print(f"ptxas [{name}]:", line.strip())
+        for fn, usage in ptxas_usage(info["nvcc_log"]).items():
+            print(f"ptxas [{name}]: {fn}: {usage}")
 
-    for lib in ("train_mlp", "train_mlp_f32"):
-        occ = occupancy(nvcc.load(lib))
+    for lib in ("train_mlp", "train_mlp_f32", "reverse_fused",
+                "reverse_fused_f32"):
+        occ = occupancy(nvcc.load(lib), lib)
         print(f"occupancy [{lib}], resident blocks per SM: " + ", ".join(
             f"{k} {v}" for k, v in occ.items()), flush=True)
 

@@ -40,16 +40,47 @@
 //
 // The f32-product mode (MLP_F32 = 1, set by the *_f32.cu sources; the
 // port's tpu.mm_precision other than "default", isdf_tpu's mm_dtype =
-// float32): the same stages with every hidden product in IEEE f32 on the
-// CUDA cores. The activation tile, the weight ring, the weights and the
-// dW operands are f32 (op_t); each thread keeps the outputs it owns in the
-// mma.sync fragment (rows g and g + 8 of each m16 tile, columns 2q and
-// 2q + 1 of each n8 tile) and sums them by fmaf in k order, so every
-// epilogue is the one of the bf16 mode. X and X2 (133 KB) and the ring
-// (80 KB) leave one block per SM; k_dw keeps two ring stages. Bound: the
-// operations, ~160 GFLOP a K1 call at 27,000 points, ~2.4 ms at 67
-// TFLOP/s. Neither TF32 nor split-bf16 products: they fall short of the
-// f32 products isdf_tpu asks for with Precision.HIGHEST.
+// float32): the same stages, every hidden product an f32-grade product on
+// the tensor cores by split bf16. An f32 value splits exactly into three
+// bf16 parts, x = hi + mid + lo (8 + 8 + 8 significand bits; split3), and
+// a product keeps the six largest of the nine cross terms (hh, hm, mh, hl,
+// lh, mm; mma_split), each an mma.sync m16n8k16 bf16 product with f32
+// accumulation, smallest first, in the accumulator fragment every epilogue
+// already reads (rows g and g + 8, columns 2q and 2q + 1). The terms left
+// out are below 2^-24 of the product, f32's own rounding: this is the
+// arithmetic of a TPU's MXU under Precision.HIGHEST (float32 as six bf16
+// passes), the mode isdf_tpu's f32 kernels ask for. The tensor cores' own
+// sums do not round to nearest: with the running sum in the mma (96 term
+// products a 256-deep product) the card read 13x the f32 FMA design's
+// gap, so each k16 step sums its terms in a fresh fragment and f32 adds
+// carry the running one (acc_add).
+// Operands: the weights come through the ring as f32, as the wrapper holds
+// them, and the activation tiles X and X2 stay f32; both are split in
+// registers as a fragment is read (split_b, split_a; ld.shared, no
+// ldmatrix). Each warp owns its 32 columns, so no weight is split twice in
+// a tile. Three bf16 planes of the weights through the ring, read by
+// ldmatrix, move 6 bytes a weight against 4, fit only 16-row stages, and
+// measured about 1.2 ms slower a K1 call on an H100 (PERF.md). k_dw
+// loads its f32 operand planes into registers and splits each value once
+// into bf16 planes in shared memory, which it reads by ldmatrix as the
+// bf16 mode does; storing split planes in the stash instead would add half
+// again to its bytes.
+// Shared memory: X and X2 f32 at a row stride of 264 (135,168 B; the
+// 8-byte fragment loads of a quad's rows fall in distinct banks) and two
+// 32-row f32 stages of the ring (81,920 B): 217,088 B dynamic and 6,656 B
+// static, as ptxas -v reports it for k_train_tile's pc and ray modes and
+// k1_geometry budgets it (5,888 B in the streamed-PE mode), one block of 8
+// warps per SM. k_dw: two buffers of a 16-row slab's split planes
+// (104,448 B). PERF.md, section 6.
+// Bound: six bf16 products per f32 product, ~957 GFLOP a K1 call at
+// 27,000 points, ~0.97 ms at 989 TFLOP/s (IEEE f32 FMAs: ~2.4 ms at 67
+// TFLOP/s; the stash's 2.63 GB, 0.79 ms at 3.35 TB/s). What bounds it now:
+// with one block per SM the weight stream, the stash's loads and stores
+// and the epilogues run in lockstep with the tensor cores and add to their
+// time rather than hide under it: the five terms past the first cost about
+// 1.8 ms a K1 call, about 0.32 m16n8k16 a clock an SM (tools/
+// k1_variants.py's f32_hh and f32_nomma against the shipped kernel; PERF.md,
+// section 6).
 //
 // No atomics anywhere: every result is the same on every run.
 
@@ -69,17 +100,26 @@ typedef __nv_bfloat162 bf162;
 #endif
 
 #if MLP_F32
-typedef float op_t;  // operands of the hidden products
-#define LDX 260      // activation tile row stride (elements)
-#define DW_NSTAGE 2  // k_dw ring stages
+typedef float op_t;  // activation tiles and dW operand planes
+typedef float wt_t;  // the weights, in global memory and in the ring
+#define LDW 260      // plain weight slab row stride (elements)
+#define MG 2         // m-tiles whose split fragments are live together
+#define DW_KS 16     // k_dw slab rows
+#define DW_LDB 136   // k_dw split planes' row stride (bf16)
+#define DW_PRE (DW_KS * DW_T / NTHR)  // float4 a thread loads a slab
 #define MIN_BLOCKS 1 // resident blocks per SM the launch bounds ask for
 #else
 typedef bf16 op_t;
-#define LDX 264
-#define DW_NSTAGE 3
+typedef bf16 wt_t;
+#define LDW 264
+#define DW_KS 32
+#define DW_LD 136
 #define MIN_BLOCKS 2
 #endif
+#define LDX 264      // activation tile row stride (elements)
+#define DW_NSTAGE 3  // k_dw ring stages
 #define CHUNK (16 / (int)sizeof(op_t))  // elements of one 16-byte cp.async
+#define WCHUNK (16 / (int)sizeof(wt_t))  // ... of the weights
 
 #define HID 256
 #define CATW 512
@@ -89,14 +129,12 @@ typedef bf16 op_t;
 #define KS 32      // weight rows (k) per ring stage
 #define NSTAGE 2   // ring stages
 #define LDT (KS + 8)  // row stride of a transposed weight slab [256 n][KS k]
-#define STAGE_ELEMS (HID * LDT)  // >= KS * LDX, the plain slab [KS k][256 n]
+#define STAGE_ELEMS (HID * LDT)  // >= KS * LDW, the plain slab [KS k][256 n]
 #define HALF_PI 1.57079637050628662109375f  // float32(pi / 2)
 #define ROWS_IN_FLIGHT 8  // global loads issued together in a per-row pass
 
 // phase 2: 128x128 output tiles, slabs of DW_KS rows of the four operands
 #define DW_T 128
-#define DW_KS 32
-#define DW_LD 136
 #define DW_STAGE_ELEMS (4 * DW_KS * DW_LD)
 
 struct Args {
@@ -108,7 +146,7 @@ struct Args {
   // constants: Mc [4, 256] PE plane, Tc [3, 256] tangent rows,
   // b [L, 256] biases (b[L-1][0] = output bias), w_out [256], inv_count [1]
   const float *Mc, *Tc, *b, *w_out, *inv_count;
-  const op_t *W;  // [L, 512, 256]
+  const wt_t *W;  // [L, 512, 256]
   // outputs
   float *ploss, *sums, *dW, *db;
   // scratch
@@ -145,10 +183,16 @@ static inline Args args_from(const long long *ptrs, const float *knobs,
   return a;
 }
 
-static const int SMEM_DYN =
-    (2 * TM * LDX + NSTAGE * STAGE_ELEMS) * (int)sizeof(op_t);
+static const int RING_BYTES = NSTAGE * STAGE_ELEMS * (int)sizeof(wt_t);
+static const int SMEM_DYN = 2 * TM * LDX * (int)sizeof(op_t) + RING_BYTES;
+#if MLP_F32
+// two buffers of a slab's split planes [3][4 operands][DW_KS][DW_LDB]
+static const int DW_PLANE_ELEMS = 4 * DW_KS * DW_LDB;
+static const int SMEM_DW = 2 * 3 * DW_PLANE_ELEMS * (int)sizeof(bf16);
+#else
 static const int SMEM_DW = DW_NSTAGE * DW_STAGE_ELEMS * (int)sizeof(op_t);
-static_assert(KS * LDX <= STAGE_ELEMS, "a plain slab fits a stage");
+#endif
+static_assert(KS * LDW <= STAGE_ELEMS, "a plain slab fits a stage");
 static_assert(TM * LDO * sizeof(float) <= 2 * TM * LDX * sizeof(op_t),
               "the f32 tile fits in X and X2");
 
@@ -224,21 +268,49 @@ __device__ __forceinline__ op_t to_op(float x) {
 #endif
 }
 
-// acc[jn][2h + e] += x[k] * b[jn][e][k] for k = 0..3 in order, IEEE f32.
-__device__ __forceinline__ void fma_k4(float (&acc)[4][4], int h, float4 x,
-                                       const float (&b)[4][2][4]) {
-#pragma unroll
-  for (int jn = 0; jn < 4; jn++)
-#pragma unroll
-    for (int e = 0; e < 2; e++) {
-      float c = acc[jn][2 * h + e];
-      c = fmaf(x.x, b[jn][e][0], c);
-      c = fmaf(x.y, b[jn][e][1], c);
-      c = fmaf(x.z, b[jn][e][2], c);
-      c = fmaf(x.w, b[jn][e][3], c);
-      acc[jn][2 * h + e] = c;
-    }
+#if MLP_F32
+// (x, y) -> bf16 pairs r[0] = hi, r[1] = mid, r[2] = lo with x == hi.x +
+// mid.x + lo.x exactly (y likewise): each part is the bf16 rounding of what
+// the larger ones leave, and every residual is exact in f32. The lower
+// halves hold x, a fragment register's lower column.
+__device__ __forceinline__ void split3(uint32_t (&r)[3], float x, float y) {
+  const bf162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float mx = x - hf.x, my = y - hf.y;
+  const bf162 m = __floats2bfloat162_rn(mx, my);
+  const float2 mf = __bfloat1622float2(m);
+  const bf162 l = __floats2bfloat162_rn(mx - mf.x, my - mf.y);
+  r[0] = *reinterpret_cast<const uint32_t *>(&h);
+  r[1] = *reinterpret_cast<const uint32_t *>(&m);
+  r[2] = *reinterpret_cast<const uint32_t *>(&l);
 }
+
+// acc[i][jn] += A_X[i] B_Y[jn]: the (X, Y) cross term of a split product
+// (parts 0 hi, 1 mid, 2 lo), 4 MT independent mma.sync a term.
+template <int X, int Y, int MT>
+__device__ __forceinline__ void split_term(float (&acc)[MT][4][4],
+                                           const uint32_t (&a)[MT][3][4],
+                                           const uint32_t (&b)[3][4][2]) {
+#pragma unroll
+  for (int i = 0; i < MT; i++)
+#pragma unroll
+    for (int jn = 0; jn < 4; jn++)
+      mma_bf16(acc[i][jn], a[i][X], b[Y][jn][0], b[Y][jn][1]);
+}
+
+// acc += A B, A and B the sums of their three split parts: the six cross
+// terms at least 2^-16 of the product, smallest first (ml, lm and ll, below
+// 2^-24, are left out).
+template <int MT>
+__device__ __forceinline__ void mma_split(float (&acc)[MT][4][4],
+                                          const uint32_t (&a)[MT][3][4],
+                                          const uint32_t (&b)[3][4][2]) {
+  split_term<1, 1>(acc, a, b);                                // mm
+  split_term<0, 2>(acc, a, b); split_term<2, 0>(acc, a, b);  // hl, lh
+  split_term<0, 1>(acc, a, b); split_term<1, 0>(acc, a, b);  // hm, mh
+  split_term<0, 0>(acc, a, b);                                // hh
+}
+#endif
 
 __device__ __forceinline__ void sig_sp(float z, float &sig, float &h) {
   float x = 100.f * z;
@@ -265,7 +337,8 @@ __device__ __forceinline__ float cb_at(const float *pe_row, int j, int E,
 // The block's shared tiles and coordinates. F, the f32 tile of the row
 // reductions, aliases X and X2.
 struct Tile {
-  op_t *X, *X2, *ring;
+  op_t *X, *X2;
+  wt_t *ring;
   float *F;
   int tid, warp, lane, g, q, n0, tile, r0;
 };
@@ -274,7 +347,7 @@ __device__ __forceinline__ Tile tile_of(unsigned char *smem) {
   Tile t;
   t.X = reinterpret_cast<op_t *>(smem);
   t.X2 = t.X + TM * LDX;
-  t.ring = t.X2 + TM * LDX;
+  t.ring = reinterpret_cast<wt_t *>(t.X2 + TM * LDX);
   t.F = reinterpret_cast<float *>(smem);
   t.tid = threadIdx.x;
   t.warp = t.tid >> 5;
@@ -297,10 +370,27 @@ __device__ __forceinline__ void acc_zero(float (&acc)[MT][4][4]) {
       for (int e = 0; e < 4; e++) acc[i][jn][e] = 0.f;
 }
 
+#if MLP_F32
+// acc[i0 + i] += part[i], f32 adds (round to nearest): the tensor cores'
+// own sums of a product's terms do not round to nearest, so each k16 step
+// sums its terms in a fresh fragment and only these adds carry the
+// running sum.
+template <int NG, int MT>
+__device__ __forceinline__ void acc_add(float (&acc)[MT][4][4], int i0,
+                                        const float (&part)[NG][4][4]) {
+#pragma unroll
+  for (int i = 0; i < NG; i++)
+#pragma unroll
+    for (int jn = 0; jn < 4; jn++)
+#pragma unroll
+      for (int e = 0; e < 4; e++) acc[i0 + i][jn][e] += part[i][jn][e];
+}
+#endif
+
 // The weights of one product: segment 0 is W0, segment 1 (nseg == 2) W1;
 // each is a 256x256 block of row stride 256.
 struct Prod {
-  const op_t *W0, *W1;
+  const wt_t *W0, *W1;
   int nseg;
 };
 
@@ -310,24 +400,72 @@ template <bool TRANS>
 __device__ __forceinline__ void ring_issue(const Prod &p, int s, const Tile &t) {
   const int SPS = HID / KS;  // slabs per segment
   if (s < p.nseg * SPS) {
-    const op_t *W = s < SPS ? p.W0 : p.W1;
+    const wt_t *W = s < SPS ? p.W0 : p.W1;
     const int k0 = (s % SPS) * KS;
-    op_t *dst = t.ring + (s % NSTAGE) * STAGE_ELEMS;
+    wt_t *dst = t.ring + (s % NSTAGE) * STAGE_ELEMS;
 #pragma unroll
-    for (int c = t.tid; c < HID * KS / CHUNK; c += NTHR) {
-      if (TRANS) {  // KS / CHUNK chunks of 16 bytes a row
-        const int n = c / (KS / CHUNK), h = c % (KS / CHUNK);
-        cp_async16(dst + n * LDT + h * CHUNK,
-                   W + (size_t)n * HID + k0 + h * CHUNK);
-      } else {      // HID / CHUNK chunks a row
-        const int k = c / (HID / CHUNK), h = c % (HID / CHUNK);
-        cp_async16(dst + k * LDX + h * CHUNK,
-                   W + (size_t)(k0 + k) * HID + h * CHUNK);
+    for (int c = t.tid; c < HID * KS / WCHUNK; c += NTHR) {
+      if (TRANS) {  // KS / WCHUNK chunks of 16 bytes a row
+        const int n = c / (KS / WCHUNK), h = c % (KS / WCHUNK);
+        cp_async16(dst + n * LDT + h * WCHUNK,
+                   W + (size_t)n * HID + k0 + h * WCHUNK);
+      } else {      // HID / WCHUNK chunks a row
+        const int k = c / (HID / WCHUNK), h = c % (HID / WCHUNK);
+        cp_async16(dst + k * LDW + h * WCHUNK,
+                   W + (size_t)(k0 + k) * HID + h * WCHUNK);
       }
     }
   }
   cp_async_commit();
 }
+
+#if MLP_F32
+// The split B fragments of the warp's 32 columns at k-rows k16..k16 + 15
+// of an f32 weight slab: register h of n-tile jn holds k-rows 2q + 8h and
+// 2q + 8h + 1 of column n0 + 8 jn + g, read as one float2 ([n][k]) or two
+// floats ([k][n]) and split.
+template <bool TRANS>
+__device__ __forceinline__ void split_b(uint32_t (&b)[3][4][2],
+                                        const float *S, int k16,
+                                        const Tile &t) {
+#pragma unroll
+  for (int jn = 0; jn < 4; jn++)
+#pragma unroll
+    for (int h = 0; h < 2; h++) {
+      const int n = t.n0 + 8 * jn + t.g, k = k16 + 2 * t.q + 8 * h;
+      float x, y;
+      if (TRANS) {
+        const float2 v = ld_f2(S + n * LDT + k);
+        x = v.x; y = v.y;
+      } else {
+        x = S[k * LDW + n]; y = S[(k + 1) * LDW + n];
+      }
+      uint32_t s3[3];
+      split3(s3, x, y);
+      b[0][jn][h] = s3[0]; b[1][jn][h] = s3[1]; b[2][jn][h] = s3[2];
+    }
+}
+
+// The split A fragments of rows m0row..m0row + 16 MT - 1, columns k0..k0 +
+// 15 of an f32 tile: register r of m-tile i holds rows g + 8 (r & 1),
+// columns 2q, 2q + 1 (+ 8 when r >= 2), read as float2 and split.
+template <int MT>
+__device__ __forceinline__ void split_a(uint32_t (&af)[MT][3][4],
+                                        const float *X, int m0row, int k0,
+                                        const Tile &t) {
+#pragma unroll
+  for (int i = 0; i < MT; i++) {
+    const float *p = X + (m0row + 16 * i + t.g) * LDX + k0 + 2 * t.q;
+#pragma unroll
+    for (int r = 0; r < 4; r++) {
+      const float2 v = ld_f2(p + (r & 1) * 8 * LDX + (r >> 1) * 8);
+      uint32_t s3[3];
+      split3(s3, v.x, v.y);
+      af[i][0][r] = s3[0]; af[i][1][r] = s3[1]; af[i][2][r] = s3[2];
+    }
+  }
+}
+#endif
 
 // Starts a product's weight stream: its first NSTAGE - 1 slabs. Called
 // once the ring is free (after the barrier that ends the previous
@@ -360,44 +498,32 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
     cp_async_wait<NSTAGE - 2>();  // slab s has landed for this thread
     __syncthreads();              // ... for all; slab s - 1's stage is free
     ring_issue<TRANS>(p, s + NSTAGE - 1, t);
-    const op_t *S = t.ring + (s % NSTAGE) * STAGE_ELEMS;
+    const wt_t *S = t.ring + (s % NSTAGE) * STAGE_ELEMS;
     const int kk = (s % SPS) * KS;
     const op_t *XA = (!DUAL && s >= SPS) ? X1 : X0;
 #if MLP_F32
-    // IEEE f32 products: four k a step, B(W) for the thread's 8 columns
-    // from the slab, then each of its 2 MT rows of X as one float4
-    (void)lane;
-#pragma unroll 2
-    for (int k4 = 0; k4 < KS; k4 += 4) {
-      float b[4][2][4];
+    // split-bf16 products: B(W) and A's rows split in registers (A MG
+    // m-tiles at a time), the six cross terms into a fresh fragment added
+    // to the running one
 #pragma unroll
-      for (int jn = 0; jn < 4; jn++) {
-        const int c = t.n0 + 8 * jn + 2 * t.q;
-        if (TRANS) {
+    for (int k16 = 0; k16 < KS; k16 += 16) {
+      uint32_t b[3][4][2];
+      split_b<TRANS>(b, S, k16, t);
 #pragma unroll
-          for (int e = 0; e < 2; e++) {
-            const float4 v =
-                *reinterpret_cast<const float4 *>(S + (c + e) * LDT + k4);
-            b[jn][e][0] = v.x; b[jn][e][1] = v.y;
-            b[jn][e][2] = v.z; b[jn][e][3] = v.w;
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; k++) {
-            const float2 v = ld_f2(S + (k4 + k) * LDX + c);
-            b[jn][0][k] = v.x; b[jn][1][k] = v.y;
-          }
+      for (int ig = 0; ig < MT; ig += MG) {
+        uint32_t af[MG][3][4];
+        float part[MG][4][4];
+        split_a<MG>(af, XA, m0row + 16 * ig, kk + k16, t);
+        acc_zero(part);
+        mma_split(part, af, b);
+        acc_add<MG>(acc, ig, part);
+        if (DUAL) {
+          split_a<MG>(af, X1, m0row + 16 * ig, kk + k16, t);
+          acc_zero(part);
+          mma_split(part, af, b);
+          acc_add<MG>(acc2, ig, part);
         }
       }
-#pragma unroll
-      for (int i = 0; i < MT; i++)
-#pragma unroll
-        for (int h = 0; h < 2; h++) {
-          const int ar = (m0row + 16 * i + t.g + 8 * h) * LDX + kk + k4;
-          fma_k4(acc[i], h, *reinterpret_cast<const float4 *>(XA + ar), b);
-          if (DUAL)
-            fma_k4(acc2[i], h, *reinterpret_cast<const float4 *>(X1 + ar), b);
-        }
     }
 #else
 #pragma unroll
@@ -411,7 +537,7 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
           ldsm_x4(r, S + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDT + k16 +
                          ((lane >> 3) & 1) * 8);
         else
-          ldsm_x4_t(r, S + (k16 + (lane & 15)) * LDX + nb + (lane >> 4) * 8);
+          ldsm_x4_t(r, S + (k16 + (lane & 15)) * LDW + nb + (lane >> 4) * 8);
         b[2 * pp][0] = r[0]; b[2 * pp][1] = r[1];
         b[2 * pp + 1][0] = r[2]; b[2 * pp + 1][1] = r[3];
       }
@@ -441,7 +567,7 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
 // (transposed; layer 0 adds the skip layer's pe rows through X2) and the
 // backward chain's layer l (transposed, main rows only).
 __device__ __forceinline__ Prod prod_fwd(const Args &a, int l) {
-  const op_t *Wl = a.W + (size_t)l * CATW * HID;
+  const wt_t *Wl = a.W + (size_t)l * CATW * HID;
   return Prod{Wl, Wl + HID * HID, l == a.cat ? 2 : 1};
 }
 
@@ -862,10 +988,10 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
 // skip layer's pe rows 256:512. Slabs of DW_KS rows of the four operands
 // (128 columns each) come in by cp.async through a DW_NSTAGE ring; the
 // A-side fragments by ldmatrix.trans (A is stored [row][i]), the B side
-// by ldmatrix.trans ([row][j] is k-major).
+// by ldmatrix.trans ([row][j] is k-major); in the f32 mode the same from
+// bf16 planes that the block splits each f32 slab into, once a value.
 static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
   extern __shared__ __align__(128) unsigned char smem_dw[];
-  op_t *ring = reinterpret_cast<op_t *>(smem_dw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.y, s = blockIdx.z, nh = a.L - 1;
   const int ib = (blockIdx.x >> 1) * DW_T, jb = (blockIdx.x & 1) * DW_T;
@@ -880,6 +1006,89 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
   const int rb = s * a.rps, re = min(rb + a.rps, a.NP);
   const int nslab = max(re - rb, 0) / DW_KS;
 
+  const int gq = lane >> 2, q = lane & 3;
+  float acc[4][4][4];
+  acc_zero(acc);
+#if MLP_F32
+  // each slab's f32 operands come to registers (the next slab's loads in
+  // flight under this slab's products), are split once into bf16 planes
+  // (two buffers, one barrier a slab), then multiplied as split-bf16
+  // products on fragments read as in the bf16 mode, MG m-tiles at a time
+  // into a fresh fragment added to the running one
+  bf16 *planes = reinterpret_cast<bf16 *>(smem_dw);
+  float4 pre[DW_PRE];
+  auto load = [&](int k) {  // slab k into pre
+    const size_t row0 = (size_t)rb + k * DW_KS;
+#pragma unroll
+    for (int j = 0; j < DW_PRE; j++) {
+      const int c = tid + j * NTHR;
+      const int op = c / (DW_KS * DW_T / 4), r = (c / (DW_T / 4)) % DW_KS;
+      const int c4 = (c % (DW_T / 4)) * 4;
+      pre[j] = *reinterpret_cast<const float4 *>(
+          ops[op] + (row0 + r) * HID + (op < 2 ? ib : jb) + c4);
+    }
+  };
+  auto store = [&](int buf) {  // pre, split, into plane buffer buf
+    bf16 *P = planes + buf * 3 * DW_PLANE_ELEMS;
+#pragma unroll
+    for (int j = 0; j < DW_PRE; j++) {
+      const int c = tid + j * NTHR;
+      const int op = c / (DW_KS * DW_T / 4), r = (c / (DW_T / 4)) % DW_KS;
+      const int c4 = (c % (DW_T / 4)) * 4;
+      uint32_t lo[3], hi[3];
+      split3(lo, pre[j].x, pre[j].y);
+      split3(hi, pre[j].z, pre[j].w);
+#pragma unroll
+      for (int pl = 0; pl < 3; pl++)
+        *reinterpret_cast<uint2 *>(P + pl * DW_PLANE_ELEMS +
+                                   (op * DW_KS + r) * DW_LDB + c4) =
+            make_uint2(lo[pl], hi[pl]);
+    }
+  };
+  if (nslab > 0) {
+    load(0);
+    store(0);
+  }
+  if (nslab > 1) load(1);
+  for (int k = 0; k < nslab; k++) {
+    __syncthreads();  // slab k's planes are stored; slab k - 1's are read
+    if (k + 1 < nslab) {
+      store((k + 1) & 1);
+      if (k + 2 < nslab) load(k + 2);
+    }
+    const bf16 *P = planes + (k & 1) * 3 * DW_PLANE_ELEMS;
+#pragma unroll
+    for (int ig = 0; ig < 4; ig += MG) {
+      float part[MG][4][4];
+      acc_zero(part);
+#pragma unroll
+      for (int p = 0; p < 2; p++) {
+        uint32_t b[3][4][2], af[MG][3][4];
+#pragma unroll
+        for (int pl = 0; pl < 3; pl++) {
+          const bf16 *SA = P + pl * DW_PLANE_ELEMS + p * DW_KS * DW_LDB;
+          const bf16 *SB = P + pl * DW_PLANE_ELEMS + (2 + p) * DW_KS * DW_LDB;
+#pragma unroll
+          for (int pp = 0; pp < 2; pp++) {
+            uint32_t r[4];
+            ldsm_x4_t(r, SB + (lane & 15) * DW_LDB + wj + 16 * pp +
+                             (lane >> 4) * 8);
+            b[pl][2 * pp][0] = r[0]; b[pl][2 * pp][1] = r[1];
+            b[pl][2 * pp + 1][0] = r[2]; b[pl][2 * pp + 1][1] = r[3];
+          }
+#pragma unroll
+          for (int i = 0; i < MG; i++)
+            ldsm_x4_t(af[i][pl], SA + ((lane & 7) + ((lane >> 4) << 3)) *
+                                          DW_LDB + wi + 16 * (ig + i) +
+                                      ((lane >> 3) & 1) * 8);
+        }
+        mma_split(part, af, b);
+      }
+      acc_add<MG>(acc, ig, part);
+    }
+  }
+#else
+  op_t *ring = reinterpret_cast<op_t *>(smem_dw);
   auto issue = [&](int k) {
     if (k < nslab) {
       op_t *dst = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
@@ -897,9 +1106,6 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
     cp_async_commit();
   };
 
-  const int gq = lane >> 2, q = lane & 3;
-  float acc[4][4][4];
-  acc_zero(acc);
 #pragma unroll
   for (int k = 0; k < DW_NSTAGE - 1; k++) issue(k);
   for (int k = 0; k < nslab; k++) {
@@ -907,32 +1113,6 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
     __syncthreads();
     issue(k + DW_NSTAGE - 1);
     const op_t *S = ring + (k % DW_NSTAGE) * DW_STAGE_ELEMS;
-#if MLP_F32
-    // IEEE f32: row by row of the slab, A (or TA) at the thread's rows of
-    // dW, DZ (or DU) at its column pairs
-#pragma unroll 4
-    for (int r = 0; r < DW_KS; r++)
-#pragma unroll
-      for (int p = 0; p < 2; p++) {
-        const float *SA = S + (p * DW_KS + r) * DW_LD + wi + gq;
-        const float *SB = S + ((2 + p) * DW_KS + r) * DW_LD + wj + 2 * q;
-        float2 bv[4];
-#pragma unroll
-        for (int jn = 0; jn < 4; jn++) bv[jn] = ld_f2(SB + 8 * jn);
-#pragma unroll
-        for (int i = 0; i < 4; i++)
-#pragma unroll
-          for (int h = 0; h < 2; h++) {
-            const float av = SA[16 * i + 8 * h];
-#pragma unroll
-            for (int jn = 0; jn < 4; jn++) {
-              acc[i][jn][2 * h] = fmaf(av, bv[jn].x, acc[i][jn][2 * h]);
-              acc[i][jn][2 * h + 1] =
-                  fmaf(av, bv[jn].y, acc[i][jn][2 * h + 1]);
-            }
-          }
-      }
-#else
 #pragma unroll
     for (int k16 = 0; k16 < DW_KS; k16 += 16)
 #pragma unroll
@@ -957,9 +1137,9 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
           for (int jn = 0; jn < 4; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
         }
       }
-#endif
   }
   cp_async_wait<0>();
+#endif
   float *out = a.part_dw + ((size_t)s * (nh + 1) + g) * HID * HID;
 #pragma unroll
   for (int i = 0; i < 4; i++)

@@ -41,7 +41,9 @@
 //  * The combined tangent is built per tile from the pe row (cb_at) and the
 //    tangent rows Tc, as kernel B does with its lane rolls.
 //  * reverse_fused_f32.cu builds this file in the f32-product mode of
-//    mlp_tile.cuh (MLP_F32): isdf_tpu's mm_dtype = float32 variant.
+//    mlp_tile.cuh (MLP_F32): isdf_tpu's mm_dtype = float32 variant, its
+//    hidden products split-bf16 tensor-core products (six terms), one
+//    block per SM.
 
 #include "mlp_tile.cuh"
 
@@ -94,8 +96,22 @@ static void set_smem_once() {
   if (!attr_set) {
     allow_smem(k_rf_forward, SMEM_DYN);
     allow_smem(k_rf_vjp_tile, SMEM_DYN);
+    allow_smem(k_dw, SMEM_DW);
     attr_set = true;
   }
+}
+
+// Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+// out[0] k_rf_forward, out[1] k_rf_vjp_tile, out[2] k_dw. Returns the CUDA
+// error code.
+extern "C" int isdf_rf_occupancy(int *out) {
+  set_smem_once();
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k_rf_forward, NTHR,
+                                                SMEM_DYN);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], k_rf_vjp_tile, NTHR,
+                                                SMEM_DYN);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], k_dw, NTHR, SMEM_DW);
+  return (int)cudaGetLastError();
 }
 
 // K2. ptrs, knobs, ints: see args_from (mlp_tile.cuh). Returns the

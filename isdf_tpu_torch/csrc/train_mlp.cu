@@ -138,7 +138,7 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
     // chunk is a multiple of 4, so each thread still scans its indices in
     // increasing order
     float4 *spq = reinterpret_cast<float4 *>(t.ring);
-    const int SP_CHUNK = NSTAGE * STAGE_ELEMS * (int)sizeof(op_t) / 16;
+    const int SP_CHUNK = RING_BYTES / 16;
     for (int c0 = 0; c0 < a.R; c0 += SP_CHUNK) {
       const int n = min(SP_CHUNK, a.R - c0);
       __syncthreads();

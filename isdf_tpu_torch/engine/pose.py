@@ -14,7 +14,9 @@ one jitted ``lax.scan``; here it is a Python loop whose accept / reject is
 ``torch.where`` on device tensors, never a branch on a device value. The
 one wait on the host inside a burst is ``torch.linalg.eigh``'s check of
 its error codes (once an iteration, on the card). Pose math is float32
-(TF32 is off in the whole port)."""
+(TF32 is off in the whole port). The per-frame sums of the normal
+equations and the twist update add in a fixed order (``segment_sum``), so
+a burst gives the same bits on every run."""
 
 from __future__ import annotations
 
@@ -37,6 +39,23 @@ def init_pose_state(capacity: int, pose_lr: float = 4e-4, device="cpu"):
     solver has no learning rate."""
     del pose_lr
     return PoseState(torch.zeros((capacity, 6), device=device)), None
+
+
+def segment_onehot(seg, n: int):
+    """The one-hot [n, R] f32 matrix of segment ids ``seg`` [R] in [0, n)."""
+    return (seg[None, :] == torch.arange(n, device=seg.device)[:, None]
+            ).float()
+
+
+def segment_sum(v, onehot):
+    """Sums of the rows of ``v`` [R, ...] by segment into [n, ...]
+    (jax.ops.segment_sum), ``onehot`` = segment_onehot(seg, n): their
+    product, which adds in a fixed order, the same bits in every run (f32
+    products; the package turns TF32 off). On the card index_add_ adds
+    with atomics in an order that varies from run to run. A burst builds
+    its one-hot matrices once; its n (frames, or arena rows) is small."""
+    n = onehot.shape[0]
+    return (onehot @ v.reshape(v.shape[0], -1)).reshape((n,) + v.shape[1:])
 
 
 def corrected_poses(twists, T_WC):
@@ -116,9 +135,11 @@ class PoseRefiner:
             loss = (rho * w_base).sum() / n_valid
             return loss, (r, g, x, w, T_f[:, :3, 3])
 
+        by_frame = segment_onehot(ib, F)                      # [F, R]
+        by_row = segment_onehot(rows, twists.shape[0])        # [C, F]
+
         def seg(v):
-            out = torch.zeros((F,) + v.shape[1:], device=dev)
-            return out.index_add_(0, ib, v)
+            return segment_sum(v, by_frame)
 
         loss, aux = residuals(twists)
         lam_scale = torch.tensor(1e-2, device=dev)
@@ -147,8 +168,8 @@ class PoseRefiner:
             delta = torch.where(n_in[:, None] >= 6.0, delta * scale, 0.0)
             # camera-centred (omega, v_c) -> world twist about the centres
             dv = delta[:, 3:] - torch.linalg.cross(delta[:, :3], cam_f)
-            cand = twists.index_add(0, rows, torch.cat([delta[:, :3], dv],
-                                                       dim=1))
+            cand = twists + segment_sum(torch.cat([delta[:, :3], dv], dim=1),
+                                        by_row)
             new_loss, new_aux = residuals(cand)
             # one accept for the whole burst (the loop refines one frame)
             accept = new_loss < loss - 1e-4

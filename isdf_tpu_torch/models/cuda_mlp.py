@@ -28,7 +28,9 @@ Two executors of the same function:
   * the CUDA kernel csrc/train_mlp.cu (sm_90a), built with nvcc at first
     use into a directory .gitignore lists, and bound through ctypes; for
     mm_precision other than "default" its f32-product mode,
-    csrc/train_mlp_f32.cu (isdf_tpu's mm_dtype = float32).
+    csrc/train_mlp_f32.cu (isdf_tpu's mm_dtype = float32), whose hidden
+    products are split-bf16 tensor-core products (SPLIT_TERMS), the f32
+    operands split in the kernel's registers.
 
 ``make_train_op`` returns a function that takes the plain version for CPU
 tensors and launches the kernel for CUDA tensors; it never falls back.
@@ -47,6 +49,10 @@ from isdf_tpu_torch.utils import nvcc
 HID = 256
 TM = 64           # rows per tile of the kernels' first phase
 N_SPLITS = 16     # split-K partials of the dW products
+# ... in the f32-product mode, where k_dw runs one block per SM: 4 output
+# tiles x 7 GEMMs x 33 splits = 924 blocks, seven full waves on an H100's
+# 132 SMs (16 splits: 448 blocks, 3.4 waves)
+N_SPLITS_F32 = 33
 DW_SLAB = 32      # rows per shared-memory slab of k_dw (csrc: DW_KS)
 HALF_PI = float(np.float32(np.pi / 2))
 
@@ -63,6 +69,14 @@ ARG_PTRS = ("pts", "valid", "noise", "col_a", "vec3", "is_surf", "sp",
             "sums", "dW", "db", "pe32", "sig", "u", "h5", "peb", "m0b",
             "hb", "tb", "dzb", "dub", "part_scal", "part_db", "part_dwout",
             "part_dw", "pe_in", "raw_out", "graw_out", "draw_in", "dg_in")
+
+
+# the cross terms of the f32-product mode's split products, (part of A,
+# part of B) with 0 hi, 1 mid, 2 lo, in the kernel's order (csrc/
+# mlp_tile.cuh, mma_split): smallest first, the three terms below 2^-24 of
+# the product (ml, lm, ll) left out, as a TPU's Precision.HIGHEST leaves
+# them out of its six bf16 passes
+SPLIT_TERMS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 
 
 def _round_up(n, m):
@@ -242,8 +256,8 @@ def source(name: str, model: SDFModel) -> str:
 
 def weight_args(params, model: SDFModel):
     """The weight pointers of the argument block: W (the planes in the
-    products' operand type: bf16, or f32 as they are), b and w_out,
-    checked."""
+    products' operand type: bf16, or f32 as they are, split in the
+    kernels' registers), b and w_out, checked."""
     L = model.n_layers
     Wp, bp = params["Wp"], params["bp"]
     _check("Wp", Wp, (L, 2 * HID, HID))
@@ -262,36 +276,46 @@ def k1_geometry(N: int, L: int, f32: bool = False) -> dict:
     layers: NP rows in n_tiles tiles of TM (phase 1), S splits of rps rows
     each, a multiple of the k_dw slab (phase 2), and the shapes of the
     scratch the phases pass on (phase 3 reads the partials). ``f32``: the
-    f32-product mode. Also the mode's operand dtype and the shared memory
-    of each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW):
-    the activation tiles X and X2 (TM rows of ldx), the weight ring
-    (NSTAGE stages of 256 rows of KS + 8), k_dw's ring (dw_stages stages of
-    the four operands' DW_SLAB rows of 136), and the static shared arrays
-    of k_train_tile (smem_static)."""
+    f32-product mode. Also the mode's operand dtype (of the weights, the
+    activation tiles and the dW operand planes) and the shared memory of
+    each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW): the
+    activation tiles X and X2 (TM rows of ldx), the weight ring (nstage
+    stages of 256 rows of ks + 8), k_dw's ring (dw_stages stages of the
+    four operands' dw_ks rows of dw_ld; in the f32 mode two buffers of the
+    three bf16 planes a slab splits into), and the static shared arrays of
+    k_train_tile (smem_static). The f32 mode's budget: X and X2 f32
+    (135,168 B) and a ring of two f32 stages of 32 rows (81,920 B), one
+    block per SM; k_dw's two buffers of 16-row split planes (104,448 B)."""
     nh = L - 1
     NP = _round_up(max(N, 1), TM)
     n_tiles = NP // TM
-    rps = _round_up(-(-NP // N_SPLITS), DW_SLAB)
+    S = N_SPLITS_F32 if f32 else N_SPLITS
+    rps = _round_up(-(-NP // S), DW_SLAB)
     shapes = dict(
         pe32=(NP, HID), sig=(nh, NP, HID), u=(nh, NP, HID), h5=(NP, HID),
         peb=(NP, HID), m0b=(NP, HID), hb=(max(nh - 1, 1), NP, HID),
         tb=(max(nh - 1, 1), NP, HID), dzb=(nh, NP, HID), dub=(nh, NP, HID),
         part_scal=(n_tiles, 8), part_db=(n_tiles, L * HID),
-        part_dwout=(n_tiles, HID), part_dw=(N_SPLITS, nh + 1, HID, HID),
+        part_dwout=(n_tiles, HID), part_dw=(S, nh + 1, HID, HID),
         dW=(L, 2 * HID, HID), db=(L, HID))
     op_dtype = torch.float32 if f32 else torch.bfloat16
     esz = 4 if f32 else 2
-    ldx, ks, nstage = (260 if f32 else 264), 32, 2
-    dw_stages = 2 if f32 else 3
+    ldx, ks, nstage, dw_ld = 264, 32, 2, 136
     smem = (2 * TM * ldx + nstage * HID * (ks + 8)) * esz
-    smem_dw = dw_stages * 4 * DW_SLAB * 136 * esz
+    if f32:  # two buffers of a 16-row slab's three bf16 planes
+        dw_stages, dw_ks = 2, 16
+        smem_dw = dw_stages * 3 * 4 * dw_ks * dw_ld * 2
+    else:
+        dw_stages, dw_ks = 3, DW_SLAB
+        smem_dw = dw_stages * 4 * dw_ks * dw_ld * esz
     smem_static = (22 * TM + HID) * 4  # per-row columns, ctb, st_col
     dtypes = {k: op_dtype if k in OPERAND_SCRATCH else torch.float32
               for k in shapes}
-    return dict(NP=NP, n_tiles=n_tiles, S=N_SPLITS, rps=rps, slab=DW_SLAB,
+    return dict(NP=NP, n_tiles=n_tiles, S=S, rps=rps, slab=DW_SLAB,
                 shapes=shapes, dtypes=dtypes, op_dtype=op_dtype, ldx=ldx,
-                ks=ks, nstage=nstage, dw_stages=dw_stages, smem=smem,
-                smem_dw=smem_dw, smem_static=smem_static,
+                ks=ks, nstage=nstage, dw_stages=dw_stages, dw_ks=dw_ks,
+                dw_ld=dw_ld, smem=smem, smem_dw=smem_dw,
+                smem_static=smem_static,
                 blocks_per_sm=1 if f32 else 2)
 
 

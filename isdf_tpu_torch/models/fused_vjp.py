@@ -109,7 +109,10 @@ def v_chain(params, model: SDFModel, sigs, mm_dtype):
 def param_vjp(params, model: SDFModel, pe, m0, sigs, hs, draw, mm_dtype):
     """(dWp, dbp) on the packed planes from the cotangent of raw (draw
     [N]) and the combined tangent m0 [N, E] of the spatial gradient's
-    cotangent; every padded entry is exactly zero."""
+    cotangent; every padded entry is exactly zero. Every hidden product,
+    the dW contractions included, goes through ``_mm``: the one seam at
+    which a test replaces the products (tests/test_torch_split_f32.py
+    replays the f32 mode's split products there)."""
     Wp, bp = params["Wp"], params["bp"]
     L, H, K, E = (model.n_layers, model.hidden_size, model.pack_rows,
                   model.embedding_size)
@@ -134,7 +137,7 @@ def param_vjp(params, model: SDFModel, pe, m0, sigs, hs, draw, mm_dtype):
     db[L - 1, 0] = draw.sum()
 
     def mm_c(a, b_):       # a^T b over the rows
-        return _rnd(a, mm_dtype).T @ _rnd(b_, mm_dtype)
+        return _mm(a.T, b_, mm_dtype)
 
     dh = draw * w_out
     dt = w_out.expand_as(dh)

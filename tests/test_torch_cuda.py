@@ -417,10 +417,12 @@ def test_profile_step_reads_idle_share_from_trace_intervals(tmp_path):
 
 
 # the f32-product mode (tpu.mm_precision other than "default") against the
-# plain version with f32 products, at this file's size: both sum IEEE f32
-# products, in another order. About 10x the largest gap read on an H100:
-# sums 1.2e-7, per-point loss 2.2e-7, gradient blocks 6.2e-7 (K1) and
-# 5.3e-7 (K3), K2 2.1e-6 (PERF.md, section 6)
+# plain version with f32 products, at this file's size: the kernels sum six
+# split-bf16 tensor-core products a product, the plain version IEEE f32
+# ones. About 10x the largest gap the mode's first design (IEEE f32 FMAs)
+# read on an H100: sums 1.2e-7, per-point loss 2.2e-7, gradient blocks
+# 6.2e-7 (K1) and 5.3e-7 (K3), K2 2.1e-6; the split design reads 1.5e-7,
+# 2.2e-7, 8.0e-7 and 7.7e-7, K2 2.4e-6 (PERF.md, section 6)
 TOL_F32_SUMS, TOL_F32_PLOSS, TOL_F32_GRAD, TOL_F32_RAW = 1.5e-6, 3e-6, \
     1e-5, 3e-5
 

@@ -90,8 +90,10 @@ def _jax_model(tm):
         min_deg=tm.min_deg, max_deg=tm.max_deg)
 
 
-@pytest.mark.parametrize("key_seed,n_steps", [(0, 10), (7, 10), (3, 4)])
-def test_solve_matches_jax_on_its_draws(key_seed, n_steps):
+def _solve_both(key_seed, n_steps, rows_np=None):
+    """isdf_tpu's burst and the port's solve on its draws, over the arena
+    rows ``rows_np`` (both frames by default). Returns (port twists,
+    losses, isdf_tpu's twists, losses)."""
     from isdf_tpu.engine.pose import build_pose_refine_step, init_pose_state
     from isdf_tpu.ops import geometry as JG
     from isdf_tpu.ops import sampling as JS
@@ -100,7 +102,8 @@ def test_solve_matches_jax_on_its_draws(key_seed, n_steps):
     jmodel = _jax_model(tr.model)
     jparams = TM.params_to_jax(tr.params, tr.model)
     n = tr.buffer.count
-    rows_np = np.arange(n - 2, n)       # both frames, one joint burst
+    if rows_np is None:
+        rows_np = np.arange(n - 2, n)   # both frames, one joint burst
     depth = tr.buffer.depth[rows_np].numpy()
     T = tr.buffer.T_WC[rows_np].numpy()
     transform = tr.transform_dev.numpy()
@@ -128,12 +131,52 @@ def test_solve_matches_jax_on_its_draws(key_seed, n_steps):
         torch.as_tensor(depth), torch.as_tensor(T),
         torch.as_tensor(rows_np), torch.as_tensor(dirs),
         torch.as_tensor(transform), draws, n_steps=n_steps)
-    jtw = np.asarray(state.twists)
+    return twists, losses, np.asarray(state.twists), np.asarray(jlosses)
+
+
+@pytest.mark.parametrize("key_seed,n_steps", [(0, 10), (7, 10), (3, 4)])
+def test_solve_matches_jax_on_its_draws(key_seed, n_steps):
+    twists, losses, jtw, jlosses = _solve_both(key_seed, n_steps)
     assert np.abs(jtw).max() > 1e-3       # the burst moved the poses
     assert float(jlosses[-1]) < float(jlosses[0])
     np.testing.assert_allclose(twists.numpy(), jtw, atol=1e-5)
     np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses),
                                atol=1e-5)
+
+
+def test_solve_matches_jax_with_a_repeated_frame():
+    """A burst whose frames repeat an arena row (the newest frame twice):
+    the fixed-order segment sums give each burst frame its own normal
+    equations and add both steps into the one twist, as isdf_tpu's
+    segment_sum and .at[rows].add do."""
+    n = _mapped()[0].buffer.count
+    twists, losses, jtw, jlosses = _solve_both(
+        7, 6, rows_np=np.array([n - 1, n - 1]))
+    assert np.abs(jtw[n - 1]).max() > 1e-4
+    assert not np.abs(np.delete(jtw, n - 1, axis=0)).any()
+    np.testing.assert_allclose(twists.numpy(), jtw, atol=1e-5)
+    np.testing.assert_allclose(losses.numpy(), jlosses, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(), (6,), (6, 6)])
+def test_segment_sum_fixed_order(shape):
+    """segment_sum equals the f64 sums by segment over repeated segment
+    ids, leaves empty segments zero, and repeats its bits (a fixed-order
+    product, not index_add_'s atomics)."""
+    rng = np.random.default_rng(11)
+    R, F = 600, 5
+    seg = rng.integers(0, F - 1, R)         # segment F - 1 stays empty
+    v = rng.normal(size=(R,) + shape).astype(np.float32)
+    onehot = TP.segment_onehot(torch.as_tensor(seg), F)
+    assert onehot.shape == (F, R) and onehot.sum() == R
+    out = TP.segment_sum(torch.as_tensor(v), onehot)
+    want = np.zeros((F,) + shape)
+    np.add.at(want, seg, v.astype(np.float64))
+    assert out.shape == (F,) + shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert not out[F - 1].any()
+    again = TP.segment_sum(torch.as_tensor(v), onehot)
+    assert torch.equal(out, again)
 
 
 def test_holds_still_on_untrained_map():

@@ -3,6 +3,7 @@
 kernel, beside the sources as shipped.
 
     python -m tools.k1_variants [NAME ...]     (from the repo's root)
+    python -m tools.k1_variants f32_NAME ...  (the f32-product mode)
 
 Each variant is a copy of isdf_tpu_torch/csrc with a few text edits
 (VARIANTS: the ring's slab depth and stage count, blocks per SM, the
@@ -17,6 +18,14 @@ ptxas reports for k_train_tile, the resident blocks per SM, the device ms
 of k_train_tile, k_dw and k_reduce (torch.profiler trace over 20 calls),
 and the largest gap of its dW, db and loss sums to the shipped sources'
 (each relative to the block's largest magnitude).
+
+Variants named f32_* (VARIANTS_F32) edit the f32-product mode and are
+timed on train_mlp_f32 with mm_precision "highest" beside the shipped f32
+sources. Some compute wrong bits on purpose, to time one part of the
+design by leaving another out: f32_nomma (no tensor-core products),
+f32_nosplit (no split arithmetic), f32_nowait (no wait for the weight
+slabs and no barrier between them), f32_halfw (half of each weight slab
+loaded), f32_hh (one split term instead of six), and a pair of these.
 """
 
 from __future__ import annotations
@@ -62,10 +71,44 @@ VARIANTS = {
                "#pragma once\n#include <stdio.h>\n")] + [
         (f, s, MARK.format(k=k) + s) for k, (f, s) in enumerate(STAGE_STARTS)],
 }
+# the f32-product mode's variants: (file, text, replacement) edits of
+# csrc/mlp_tile.cuh, timed on train_mlp_f32
+SPLIT_MMA = "      mma_bf16(acc[i][jn], a[i][X], b[Y][jn][0], b[Y][jn][1]);"
+NO_MMA = "      acc[i][jn][0] += __uint_as_float(a[i][X][0] ^ b[Y][jn][0]);"
+SLAB_WAIT = ("    cp_async_wait<NSTAGE - 2>();  // slab s has landed for this "
+             "thread\n    __syncthreads();              // ... for all; slab "
+             "s - 1's stage is free\n")
+VARIANTS_F32 = {
+    "f32_mg1": [("mlp_tile.cuh", "#define MG 2 ", "#define MG 1 ")],
+    "f32_mg4": [("mlp_tile.cuh", "#define MG 2 ", "#define MG 4 ")],
+    "f32_ks16_s3": [("mlp_tile.cuh", "#define KS 32", "#define KS 16"),
+                    ("mlp_tile.cuh", "#define NSTAGE 2", "#define NSTAGE 3")],
+    "f32_nomma": [("mlp_tile.cuh", SPLIT_MMA, NO_MMA)],
+    "f32_nosplit": [("mlp_tile.cuh",
+                     "  const bf162 h = __floats2bfloat162_rn(x, y);",
+                     "  r[0] = __float_as_uint(x); r[1] = __float_as_uint(y);"
+                     "\n  r[2] = r[0] ^ r[1];\n  return;\n"
+                     "  const bf162 h = __floats2bfloat162_rn(x, y);")],
+    "f32_nowait": [("mlp_tile.cuh", SLAB_WAIT, "")],
+    "f32_nomma_nowait": [("mlp_tile.cuh", SPLIT_MMA, NO_MMA),
+                         ("mlp_tile.cuh", SLAB_WAIT, "")],
+    # half of each weight slab loaded (the rest stale): the weight
+    # stream's share of the time
+    "f32_halfw": [("mlp_tile.cuh",
+                   "    for (int c = t.tid; c < HID * KS / WCHUNK; c += NTHR) {",
+                   "    for (int c = t.tid; c < HID * KS / WCHUNK / 2; "
+                   "c += NTHR) {")],
+    "f32_hh": [("mlp_tile.cuh", "  split_term<1, 1>(acc, a, b);                "
+                "                // mm\n", ""),
+               ("mlp_tile.cuh", "  split_term<0, 2>(acc, a, b); split_term<2, "
+                "0>(acc, a, b);  // hl, lh\n", ""),
+               ("mlp_tile.cuh", "  split_term<0, 1>(acc, a, b); split_term<1, "
+                "0>(acc, a, b);  // hm, mh\n", "")],
+}
+VARIANTS_F32["f32_marks"] = VARIANTS["marks"]
 MARKS = ("per-row inputs, PE, bounds", "forward", "head, v-chain",
          "spatial gradient, loss", "m0, tangent chain",
          "output-layer partials, last backward layer", "backward chain")
-PARTS = ("k_train_tile", "k_dw", "k_reduce")
 
 
 def _inputs(N=27000, seed=0):
@@ -83,32 +126,21 @@ def _inputs(N=27000, seed=0):
     return out
 
 
-def _ptxas_k_train_tile(log):
-    """The ptxas lines of the first k_train_tile instance in nvcc's log."""
+def _ptxas(log, kernel="k_train_tile"):
+    """The ptxas lines of the first instance of a kernel in nvcc's log."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "k_train_tile" in line:
+        if "Compiling entry function" in line and kernel in line:
             return " | ".join(x.strip() for x in lines[i + 1:i + 4]
                               if "registers" in x or "spill" in x)
     return "not found"
 
 
 def _device_ms(fn, reps=20):
-    from torch.profiler import ProfilerActivity, profile
-
-    from isdf_tpu_torch.train.profile_step import kernel_intervals
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        ivs = kernel_intervals(path)
-    return {k: sum(dur for _, dur, n in ivs if k in n) / 1e3 / reps
-            for k in PARTS}
+    """Device ms per call by device kernel, with chip_smoke.py's rule
+    (one traced launch of each a call, short traces taken again)."""
+    import chip_smoke
+    return chip_smoke.device_ms(torch, "K1-ray", fn, reps)[1]
 
 
 def _captured_stdout(fn):
@@ -158,13 +190,18 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("k1_variants: needs a CUDA device")
     names = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    f32 = names[0].startswith("f32_")
+    assert all(n.startswith("f32_") == f32 for n in names), \
+        "f32_* variants and the others go in separate calls"
+    table = VARIANTS_F32 if f32 else VARIANTS
+    source = "train_mlp_f32" if f32 else "train_mlp"
     base = os.path.join(nvcc.build_dir(), "variants")
     dirs = {"shipped": nvcc.CSRC}
     for name in names:
         d = os.path.join(base, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(nvcc.CSRC, d)
-        for fname, text, new in VARIANTS[name]:
+        for fname, text, new in table[name]:
             path = os.path.join(d, fname)
             with open(path) as f:
                 src = f.read()
@@ -172,10 +209,10 @@ def main(argv=None):
             with open(path, "w") as f:
                 f.write(src.replace(text, new))
         dirs[name] = d
-    nvcc.build([(d, "train_mlp") for d in dirs.values()])
+    nvcc.build([(d, source) for d in dirs.values()])
 
     cfg = load_config(CONFIG)
-    model = M.SDFModel(mm_precision=cfg.mm_precision)
+    model = M.SDFModel(mm_precision="highest" if f32 else cfg.mm_precision)
     params = {k: v.cuda() for k, v in M.init_params(
         torch.Generator().manual_seed(0), model).items()}
     T = torch.eye(4, device="cuda")
@@ -192,7 +229,7 @@ def main(argv=None):
     ref = None
     for name in ["shipped", *names, "shipped"]:
         with nvcc.sources_from(dirs[name]):
-            lib = nvcc.load("train_mlp")
+            lib = nvcc.load(source)
             occ = (ctypes.c_int * 4)()
             lib.isdf_train_mlp_occupancy.argtypes = [ctypes.c_void_p]
             rc = lib.isdf_train_mlp_occupancy(occ)
@@ -203,7 +240,7 @@ def main(argv=None):
                 ref = (sums.clone(), dW.clone(), db.clone())
             gap = max(((a - r).abs().max() / r.abs().max().clamp(min=1e-30))
                       .item() for a, r in zip((sums, dW, db), ref))
-            if name == "marks":
+            if name.endswith("marks"):
                 nb, cyc, shares = _mark_shares(_captured_stdout(
                     lambda: op(*args)))
                 print(f"marks: {nb} blocks, {cyc:.0f} SM clocks a block on "
@@ -212,13 +249,13 @@ def main(argv=None):
                       flush=True)
                 continue  # its printing would flood the output and the time
             ms = _device_ms(lambda: op(*args))
-        log = nvcc.BUILD_INFO.get((dirs[name], "train_mlp"), {}).get(
+        log = nvcc.BUILD_INFO.get((dirs[name], source), {}).get(
             "nvcc_log", "")
         print(f"{name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in
                                       ms.items())
               + f"; K1 {sum(ms.values()):.4f} ms; blocks/SM k_train_tile "
               f"{occ[1]}, k_dw {occ[3]}; gap to shipped {gap:.3e}; ptxas: "
-              f"{_ptxas_k_train_tile(log)}", flush=True)
+              f"{_ptxas(log)}; k_dw {_ptxas(log, 'k_dw')}", flush=True)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --graphs-only    # build, then phase 10 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
   1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
@@ -108,7 +109,25 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      ReplicaCAD fixture of phase 8 (K1-ray): no job None, config.json,
      res.json and vox_res.json in each run directory, figs' readers on
      them, a two-row slice comparison;
- 10. print the card, the kernels' JSON line, and the result line.
+ 10. the CUDA-graph route (engine/step.py, engine/pose.py) against the
+     eager loop (Trainer(eager=True)): on every trainer path of phase 4,
+     the op path of phase 5 in both modes (its step captured by
+     utils/graphs.py) and K = 2 scenes in lockstep, a keyed schedule of 60
+     steps a scene (nine keyframes into a 7-row arena: the window branch
+     switches, two evictions, then the refinement tail) eagerly in bundles
+     of 6 and on graphs in bundles of 2 + 4 must give the same bits in
+     the parameters, moments, step count, priority rows and per-step
+     scalars, each kernel launched once a step either way (a replay counts
+     its captured launches); so must six 10-iteration pose bursts; a
+     bundle of a captured key runs under
+     torch.cuda.set_sync_debug_mode("error"); then graph against eager in
+     turns (train/profile_step.profile, 100 warm-up and 100 timed steps):
+     billed device ms a step (the graph route's must not be higher), bare
+     and traced host wall, kernel ms, device kernels and replays a step,
+     idle share, peak memory, captures and their seconds, on the pc, ray,
+     streamed + K4 and pc-f32 paths and at K = 2 and 4; the 600-step
+     run's wall both ways and the burst's ms;
+ 11. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -895,7 +914,7 @@ def planted_faults(torch, s):
                     f"{label}: the {name} check passed on a planted fault")
 
 
-def run_trainer(torch, overrides, max_steps, sim_dt):
+def run_trainer(torch, overrides, max_steps, sim_dt, eager=False):
     """One run of the online trainer through its entry points. Returns
     (summary dict, launch counts of this run). Its evals: the reference
     protocol's entry (eval/protocol.py, "rays", as train_loop makes it)
@@ -905,7 +924,7 @@ def run_trainer(torch, overrides, max_steps, sim_dt):
     from isdf_tpu_torch.utils.config import load_config
 
     cfg = load_config(CONFIG, overrides=overrides)
-    trainer = Trainer(cfg, seed=1)
+    trainer = Trainer(cfg, seed=1, eager=eager)
     assert trainer.device.type == "cuda"
     trainer._per_step_device_s = sim_dt
     trainer._bill_exact = True
@@ -949,6 +968,10 @@ def run_trainer(torch, overrides, max_steps, sim_dt):
                    steps_per_s_wall_no_eval=res.steps / (wall - eval_s[0]),
                    device_ms_per_step=1e3 * trainer.measured_s
                    / max(res.steps, 1))
+    # the step's captures, billed with the bundles they fall in
+    stats = getattr(trainer.fns.graphs, "stats", None) or {}
+    summary.update(captures=stats.get("captures", 0),
+                   capture_s=stats.get("capture_s", 0.0))
     return summary, launches
 
 
@@ -2131,8 +2154,315 @@ TRAINER_PATHS = (
 )
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the CUDA-graph route against the eager loop
+# ---------------------------------------------------------------------------
+
+# a 7-row arena, so that 9 keyframes cross the window (5), fill the arena
+# and force two evictions; then the refinement tail
+GRAPH_ARENA = "tpu.kf_buffer_size=7"
+GRAPH_FRAMES = tuple(range(0, 90, 10))
+# the bundles of a round: each a tuple of the steps scene i takes in it
+# (the bundle's length is the largest); the same steps a scene a round
+# either way: 6 for the first scene, 4 for a second
+GRAPH_CUTS = {"eager": ((6, 4),), "graph": ((2, 1), (4, 3))}
+# the paths timed graph against eager (profile_step), and K scenes
+GRAPH_TIMED = (("K1-pc", ()), ("K1-ray", ("loss.bounds_method=ray",)),
+               ("K1-stream+K4", ("tpu.pe_in_kernel=false",
+                                 "tpu.use_pallas=true")),
+               ("K1-pc-f32", (F32_SET,)))
+GRAPH_SCENES = (2, 4)
+GRAPH_WARMUP, GRAPH_STEPS = 100, 100
+
+
+def _train_state(tr):
+    """The tensors a step updates: params, moments, count, the arena's
+    priority rows."""
+    return ([tr.params[k] for k in sorted(tr.params)]
+            + [tr.opt_state["count"]]
+            + [tr.opt_state[m][k] for m in ("mu", "nu")
+               for k in sorted(tr.params)]
+            + [tr.buffer.frame_avg_loss, tr.buffer.loss_approx])
+
+
+def _keyed_run(torch, trainers, cuts):
+    """The schedule through every key change of the captured step:
+    GRAPH_FRAMES added one a round (the window branch switches at the 6th,
+    evictions at the 8th and 9th), then the refinement tail; ``cuts`` the
+    bundles of a round (GRAPH_CUTS), one trainer through run_steps or K in
+    lockstep through MultiSceneStepper. Returns the per-step scalars of
+    each trainer."""
+    import numpy as np
+
+    from isdf_tpu_torch.parallel.multi_scene import MultiSceneStepper
+    stepper = MultiSceneStepper(trainers) if len(trainers) > 1 else None
+    logs = [[] for _ in trainers]
+    for tr in trainers:
+        tr._per_step_device_s, tr._bill_exact = 1.0 / 300, True
+
+    def steps():
+        for na in cuts:
+            if stepper is None:
+                outs = [trainers[0].run_steps(na[0])]
+            else:
+                na = na[:len(trainers)]
+                outs = stepper.run_steps(max(na), n_actives=na)
+                outs = [{k: v[:a] for k, v in o.items()}
+                        for o, a in zip(outs, na)]
+            for log, o in zip(logs, outs):
+                log.append(np.stack([o[k] for k in sorted(o)
+                                     if k != "step_time_ms"], axis=1))
+    for fid in GRAPH_FRAMES:
+        for tr in trainers:
+            tr.last_is_keyframe = True
+            tr.add_frame(tr.get_data([fid])[0])
+        steps()
+    for tr in trainers:
+        tr.tail_mode, tr.noise_std, tr.lr_scale = True, 0.0, 0.4
+    steps()
+    return [np.concatenate(log) for log in logs]
+
+
+def _same_bits(torch, label, make, expected, scenes=1):
+    """The keyed schedule eagerly (bundles of 6) and through the graphs
+    (bundles of 2 + 4) on trainers made alike: the same bits in the state
+    and the per-step scalars; each kernel of the path launched once a
+    step either way. Returns (the graph trainers, readings)."""
+    import numpy as np
+    runs = {}
+    for route in ("eager", "graph"):
+        trainers = [make(i, route == "eager") for i in range(scenes)]
+        reset_launches()
+        logs = _keyed_run(torch, trainers, GRAPH_CUTS[route])
+        torch.cuda.synchronize()
+        runs[route] = (trainers, logs, read_launches())
+    (te, le, ke), (tg, lg, kg) = runs["eager"], runs["graph"]
+    steps = sum(t.steps_taken for t in tg)
+    same = (all(np.array_equal(a, b) for a, b in zip(le, lg))
+            and all(torch.equal(x, y) for a, b in zip(te, tg)
+                    for x, y in zip(_train_state(a), _train_state(b))))
+    stats = [t.fns.graphs.stats for t in tg]
+    out = dict(steps=steps, same_bits=same, launches_eager=ke,
+               launches_graph=kg,
+               captures=sum(s["captures"] for s in stats),
+               replays=sum(s["replays"] for s in stats),
+               capture_s=sum(s["capture_s"] for s in stats))
+    print(f"graphs [{label}]: {json.dumps(out)}", flush=True)
+    expect(same, f"graphs [{label}]: the graph route's bits differ from "
+           "the eager loop's")
+    expect(steps >= 50, f"graphs [{label}]: {steps} steps")
+    for k in (ke, kg):
+        expect(all(k[n] == steps for n in expected) and all(
+            v == 0 for n, v in k.items() if n not in expected),
+            f"graphs [{label}]: launches {k} in {steps} steps")
+    expect(out["replays"] == steps - out["captures"],
+           f"graphs [{label}]: {out['replays']} replays")
+    del te
+    return tg, out
+
+
+def _op_path_graph(torch, f32, steps=60):
+    """The K2/K3 op path (rf_op_path's step: the op's value and spatial
+    gradient, autograd into K3, AdamW) eagerly and as a captured step
+    replayed: the same bits in the parameters, moments and losses."""
+    from isdf_tpu_torch.models import sdf_mlp as M
+    from isdf_tpu_torch.models.cuda_reverse_fused import \
+        make_cuda_reverse_fused
+    from isdf_tpu_torch.models.fused_adamw import init_state, \
+        make_fused_adamw
+    from isdf_tpu_torch.utils.config import load_config
+    from isdf_tpu_torch.utils.graphs import GraphRunner
+    cfg = load_config(CONFIG)
+    model = M.SDFModel(mm_precision="highest" if f32 else cfg.mm_precision)
+    N = cfg.window_size * cfg.n_rays * cfg.n_samples_per_ray
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pts = torch.rand((N, 3), generator=g, device="cuda") * 4.0 - 2.0
+    args = M._pe_factored(pts, model, torch.eye(4, device="cuda"))
+    op = make_cuda_reverse_fused(model)
+    adamw = make_fused_adamw(cfg.lr, cfg.weight_decay)
+    runs = {}
+    for route in ("eager", "graph"):
+        params = {k: v.cuda() for k, v in M.init_params(
+            torch.Generator().manual_seed(0), model).items()}
+        opt = init_state(params)
+        loss_out = torch.zeros((), device="cuda")
+
+        def step():
+            with torch.enable_grad():
+                p = {k: v.detach().requires_grad_(True)
+                     for k, v in params.items()}
+                raw, graw = op(p, *args)
+                loss = raw.abs().mean() + 0.3 * (
+                    graw.norm(dim=-1) - 1.0).abs().mean()
+                dW, db = torch.autograd.grad(loss, (p["Wp"], p["bp"]))
+            adamw(params, {"Wp": dW, "bp": db}, opt)
+            loss_out.copy_(loss.detach())
+        reset_launches()
+        losses = []
+        if route == "eager":
+            for _ in range(steps):
+                step()
+                losses.append(loss_out.clone())
+        else:
+            runner = GraphRunner("cuda")
+            runner.warm(step)
+            losses.append(loss_out.clone())
+            graph = runner.capture(step)
+            for _ in range(steps - 1):
+                graph.replay()
+                losses.append(loss_out.clone())
+        torch.cuda.synchronize()
+        runs[route] = (params, opt, torch.stack(losses), read_launches())
+    (pe, oe, le, ke), (pg, og, lg, kg) = runs["eager"], runs["graph"]
+    same = (torch.equal(le, lg) and all(
+        torch.equal(pe[k], pg[k]) and torch.equal(oe["mu"][k], og["mu"][k])
+        and torch.equal(oe["nu"][k], og["nu"][k]) for k in pe)
+        and torch.equal(oe["count"], og["count"]))
+    sfx = "-f32" if f32 else ""
+    mine = ("K2" + sfx, "K3" + sfx)
+    out = dict(steps=steps, same_bits=same, launches_eager=ke,
+               launches_graph=kg)
+    print(f"graphs [op path{sfx}]: {json.dumps(out)}", flush=True)
+    expect(same, f"graphs [op path{sfx}]: the bits differ")
+    for k in (ke, kg):
+        expect(all(k[n] == steps for n in mine) and all(
+            v == 0 for n, v in k.items() if n not in mine),
+            f"graphs [op path{sfx}]: launches {k}")
+    return out
+
+
+def _pose_graph(torch, tr, n_iters=10, reps=5):
+    """Pose bursts over the newest two arena rows of a trained map: an
+    eager refiner and one on CUDA graphs, each from the same generator
+    state and twists; the same bits in every burst, and the ms of a burst
+    (CUDA events; after each route's first burst, which the graph route
+    spends on its warm-up and capture)."""
+    from isdf_tpu_torch.engine import pose as P
+    rows = torch.arange(tr.buffer.count - 2, tr.buffer.count, device="cuda")
+    out, res = {}, {}
+    for route in ("eager", "graph"):
+        ref = P.PoseRefiner(tr.model, n_rays=tr.cfg.n_rays,
+                            n_surf_samples=tr.cfg.n_surf_samples,
+                            min_depth=tr.cfg.min_depth,
+                            eager=route == "eager")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        state, _ = P.init_pose_state(tr.buffer.capacity, device="cuda")
+        outs, ms = [], []
+        for i in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            state, losses = ref(tr.params, state, tr.buffer.depth[rows],
+                                tr.buffer.T_WC[rows], rows, tr.fns.dirs,
+                                tr.transform_dev, gen, n_steps=n_iters)
+            ev[1].record()
+            torch.cuda.synchronize()
+            if i:
+                ms.append(ev[0].elapsed_time(ev[1]))
+            outs.append((state.twists.clone(), losses.clone()))
+        res[route] = outs
+        out[f"burst_ms_{route}"] = sorted(ms)[len(ms) // 2]
+    same = all(torch.equal(a, b) for x, y in zip(res["eager"], res["graph"])
+               for a, b in zip(x, y))
+    out.update(same_bits=same, iterations=n_iters, bursts=reps + 1)
+    print(f"graphs [pose burst]: {json.dumps(out)}", flush=True)
+    expect(same, "graphs [pose burst]: the bits differ")
+    return out
+
+
+def graph_phase(torch):
+    """Phase 10: the captured steps and bursts against the eager loop on
+    the card. Same bits on every trainer path of phase 4, the op path of
+    phase 5 in both modes, K = 2 scenes in lockstep and a pose burst; no
+    host sync inside a bundle; then graph against eager in timings
+    (profile_step) on four paths and at K = 2 and 4, a 600-step run's
+    wall and the burst's ms. Returns the readings."""
+    import gc
+
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.train import profile_step
+    from isdf_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    out = {"same_bits": {}}
+    keep = None
+    for label, overrides, expected, _ in TRAINER_PATHS:
+        cfg = load_config(CONFIG, overrides=list(overrides or [])
+                          + [GRAPH_ARENA])
+        tg, out["same_bits"][label] = _same_bits(
+            torch, label, lambda i, eager, cfg=cfg: Trainer(
+                cfg, seed=1, eager=eager), expected)
+        if label == "K1-pc":
+            keep = tg[0]
+        del tg
+        gc.collect()
+        torch.cuda.empty_cache()
+    for f32 in (False, True):
+        out["same_bits"]["op path" + ("-f32" if f32 else "")] = \
+            _op_path_graph(torch, f32)
+    rooms = ("room_a", "room_b")
+    cfgs = [_room_cfg(r, [GRAPH_ARENA]) for r in rooms]
+    _, out["same_bits"]["K=2"] = _same_bits(
+        torch, "K=2", lambda i, eager: Trainer(cfgs[i], seed=1 + i,
+                                               eager=eager),
+        ("K1-pc",), scenes=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # no host sync inside a bundle of a captured key
+    tr = keep
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.fns.train_bundle(tr.params, tr.opt_state, tr.buffer,
+                            tr.transform_dev, tr._bundle_seed, 0.0,
+                            n_steps=10, lr_scale=0.4, tail=True,
+                            step0=tr.steps_taken)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out["no_sync_bundle"] = True
+    print("graphs [no sync]: a 10-step bundle under "
+          "torch.cuda.set_sync_debug_mode('error') ran", flush=True)
+    out["pose"] = _pose_graph(torch, tr)
+    del tr, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["same_bits_s"] = time.perf_counter() - t0
+
+    # timings, graph against eager in turns
+    out["timed"] = {}
+    cases = [(label, ov, 1) for label, ov in GRAPH_TIMED] + [
+        (f"K{k}-pc", (), k) for k in GRAPH_SCENES]
+    for label, ov, k in cases:
+        for route in ("eager", "graph"):
+            r = profile_step.profile(ov, scenes=k, eager=route == "eager",
+                                     warmup=GRAPH_WARMUP, steps=GRAPH_STEPS)
+            r.pop("by_kernel")
+            out["timed"][f"{label} {route}"] = r
+            print(f"graphs [timed {label} {route}]: {json.dumps(r)}",
+                  flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        e, g = (out["timed"][f"{label} {x}"] for x in ("eager", "graph"))
+        expect(g["billed_device_ms"] <= e["billed_device_ms"],
+               f"graphs [{label}]: billed {g['billed_device_ms']:.4f} ms "
+               f"a step on graphs, {e['billed_device_ms']:.4f} eager")
+    for route in ("eager", "graph"):
+        summary, _ = run_trainer(torch, None, max_steps=600,
+                                 sim_dt=1.0 / 300, eager=route == "eager")
+        out[f"run600_{route}"] = dict(
+            wall_s=summary["wall_s"], eval_s=summary["eval_s"],
+            device_ms_per_step=summary["device_ms_per_step"],
+            captures=summary["captures"], capture_s=summary["capture_s"])
+        print(f"graphs [600-step run, {route}]: "
+              f"{json.dumps(out[f'run600_{route}'])}", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
+    graphs_only = "--graphs-only" in sys.argv[1:]
     t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2159,6 +2489,9 @@ def main():
         occ = occupancy(nvcc.load(lib), lib)
         print(f"occupancy [{lib}], resident blocks per SM: " + ", ".join(
             f"{k} {v}" for k, v in occ.items()), flush=True)
+    if graphs_only:
+        print(f"graphs: {json.dumps(graph_phase(torch))}", flush=True)
+        return
 
     # ---- phase 2: kernels vs plain versions ----
     s = Setup(torch)
@@ -2242,12 +2575,15 @@ def main():
         t9 = time.perf_counter()
         readings["multi"] = multi_phase(torch, work, rc_cfg)
         readings["multi"]["wall_s"] = time.perf_counter() - t9
+    # ---- phase 10: the CUDA-graph route against the eager loop ----
+    readings["graphs"] = graph_phase(torch)
     readings["wall_s"] = time.perf_counter() - t_main
-    print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; the script "
-          f"to here: {readings['wall_s']:.1f} s wall", flush=True)
+    print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; phase 10: "
+          f"{readings['graphs']['wall_s']:.1f} s; the script to here: "
+          f"{readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 10: report ----
+    # ---- phase 11: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

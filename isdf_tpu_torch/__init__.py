@@ -14,3 +14,5 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# bf16 products (tpu.compute_dtype: "bfloat16") sum in float32 throughout
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

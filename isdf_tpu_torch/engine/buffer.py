@@ -3,8 +3,11 @@ in torch).
 
 A static set of tensors with a fill count; "append or replace last" writes
 a computed row, and all step-time access is by gather. Unlike the JAX
-package the fill count is a host integer: the eager step branches on it
-without a device sync. Rows are updated in place.
+package the fill count is a host integer: the step branches on it without
+a device sync (engine/step.py passes its value to the device in the step's
+scalar table). Rows are updated in place, evictions too, so the arena's
+tensors keep their storage for the life of the buffer: a captured step
+(engine/step.py) reads them by address.
 """
 
 from __future__ import annotations
@@ -45,26 +48,37 @@ def make_buffer(capacity: int, H: int, W: int, with_normals: bool = True,
         count=0)
 
 
+# rows moved at a time by an eviction (a normals row of a 1200x680 frame
+# is 9.8 MB)
+_EVICT_CHUNK = 16
+
+
 def evict_lowest_priority(buf: FrameBuffer,
                           keep_recent: int = 2) -> FrameBuffer:
     """Drop the older keyframe with the lowest running average loss (the
     replay window's own signal), compacting in order; the ``keep_recent``
-    newest frames are never evicted."""
+    newest frames are never evicted. In place: the rows after the victim
+    move up one, the last row stays as it was with frame id -1 (isdf_tpu's
+    permutation gathers the last row onto itself). Reads the victim's
+    index on the host."""
     C = buf.capacity
-    dev = buf.depth.device
-    idx = torch.arange(C, device=dev)
+    idx = torch.arange(C, device=buf.depth.device)
     pool = idx < (buf.count - keep_recent)
     prio = torch.where(pool, buf.frame_avg_loss, torch.inf)
-    victim = prio.argmin()
-    perm = torch.where(idx < victim, idx, torch.clamp(idx + 1, max=C - 1))
-    fid = buf.frame_id[perm]
-    fid[C - 1] = -1
-    return FrameBuffer(
-        depth=buf.depth[perm], T_WC=buf.T_WC[perm],
-        normals=None if buf.normals is None else buf.normals[perm],
-        frame_avg_loss=buf.frame_avg_loss[perm],
-        loss_approx=buf.loss_approx[perm], frame_id=fid,
-        count=buf.count - 1)
+    victim = int(prio.argmin())
+    planes = [buf.depth, buf.T_WC, buf.normals, buf.frame_avg_loss,
+              buf.loss_approx, buf.frame_id]
+    for a in planes:
+        if a is None:
+            continue
+        # chunk [r, e) takes rows [r + 1, e + 1): every source row is read
+        # before a later chunk overwrites it
+        for r in range(victim, C - 1, _EVICT_CHUNK):
+            e = min(r + _EVICT_CHUNK, C - 1)
+            a[r:e] = a[r + 1:e + 1].clone()
+    buf.frame_id[C - 1] = -1
+    buf.count -= 1
+    return buf
 
 
 def add_frame(buf: FrameBuffer, depth, T_WC, normals, frame_id: int,

@@ -30,15 +30,32 @@ with mm_dtype = float32.
 
 ``tpu.use_pallas`` sends the pc bounds computed outside the fused op to the
 nearest-surface kernel K4 (ops/cuda_bounds.py; its plain version on the
-CPU); it has no effect where the fused op computes the bounds. The TPU-only
-knobs tpu.pallas_interpret, tpu.remat, tpu.compute_dtype, the
-ISDF_PALLAS_TM / ISDF_PALLAS_FAST32 environment variables and the
-scoped-VMEM compiler option have no effect here.
+CPU); it has no effect where the fused op computes the bounds.
+``tpu.compute_dtype: "bfloat16"`` runs the eager forward's hidden layers in
+bf16 (models/sdf_mlp.py::apply): the autograd routes and the keyframe
+test; the kernels K1-K3 ignore it, as isdf_tpu's Pallas ops do. The
+TPU-only knobs tpu.pallas_interpret, tpu.remat, the ISDF_PALLAS_TM /
+ISDF_PALLAS_FAST32 environment variables and the scoped-VMEM compiler
+option have no effect here.
 
-A bundle is a plain loop of steps. Step t of the run draws from its own
-generator seeded from (seed, global step), so a trajectory does not depend
-on how steps are cut into bundles. Parameters, optimiser state and the
-arena's priority rows are updated in place.
+Step t of the run draws from the generator seeded with step_seed(seed,
+global step), so a trajectory does not depend on how steps are cut into
+bundles. Parameters, optimiser state and the arena's priority rows are
+updated in place. A step reads its noise scale, learning-rate scale and the
+arena's fill count from its row of a small table on the device
+(``step_table``); the branches it takes on the host (the window's, the
+refinement tail's and, for an arena smaller than the window, the fill
+count) are its key.
+
+On the card a bundle is one captured step replayed (isdf_tpu runs a bundle
+as one compiled ``lax.scan``): each key's first step runs eagerly, then is
+captured as a CUDA graph (utils/graphs.py), and every later step of that
+key seeds the generator, copies its table row into the graph's input and
+replays; the replay draws what the eager step draws. The graphs read the
+parameters, moments and arena at the addresses they were captured with, so
+replacing any of those tensors (a checkpoint load) drops them. On the CPU,
+or with ``StepFunctions(eager=True)`` (the card's yardstick in tests and
+chip_smoke.py), a bundle is a plain loop of steps.
 """
 
 from __future__ import annotations
@@ -72,33 +89,48 @@ def step_seed(seed: int, step: int) -> int:
     return (z ^ (z >> 31)) & ((1 << 63) - 1)
 
 
+def step_table(n_steps: int, noise_std: float, lr_scale: float, count: int,
+               device):
+    """The per-step scalars of a bundle, [n_steps, 3] float32 on the
+    device: row t holds step t's (noise_std, lr_scale, arena fill count),
+    each rounded to float32 as isdf_tpu traces them. Filled on the device,
+    so a bundle copies nothing from the host."""
+    tab = torch.empty((n_steps, 3), device=device)
+    for j, v in enumerate((noise_std, lr_scale, count)):
+        tab[:, j].fill_(float(v))
+    return tab
+
+
 def select_window(gen, count: int, frame_avg_loss, window_size: int,
-                  tail: bool = False, g=None):
+                  tail: bool = False, g=None, count_t=None):
     """The active keyframe window (reference trainer.py:652-674): the two
     newest frames plus window_size-2 older ones drawn without replacement
     with p proportional to their average loss (Gumbel top-k). With
     <= window_size frames the window is all frames plus masked padding.
     ``tail``: the refinement tail draws the whole window from all
     keyframes. ``g``: the [C] Gumbel draws (always drawn, so the
-    generator's stream does not depend on the branch taken).
+    generator's stream does not depend on the branch taken). ``count``
+    picks the branch; ``count_t``, the same count as an int64 tensor on the
+    device, gives the values, so that nothing is copied from the host.
 
     Returns (idxs [window_size] int64, valid [window_size] bool)."""
     C = frame_avg_loss.shape[0]
     dev = frame_avg_loss.device
     if g is None:
         g = S.gumbel(gen, (C,), dev)
+    n = count if count_t is None else count_t
     ar = torch.arange(window_size, device=dev)
     if count <= window_size:
-        return ar, ar < count
+        return ar, ar < n
     logits = torch.log(frame_avg_loss.clamp(min=1e-30))
     pos = torch.arange(C, device=dev)
     ones = torch.ones(window_size, dtype=torch.bool, device=dev)
     if not tail:
-        logits = torch.where(pos < count - 2, logits, -torch.inf)
+        logits = torch.where(pos < n - 2, logits, -torch.inf)
         top = torch.topk(logits + g, window_size - 2).indices
-        newest = torch.tensor([count - 2, count - 1], device=dev)
+        newest = torch.arange(2, device=dev) + (n - 2)
         return torch.cat([top, newest]), ones
-    logits = torch.where(pos < count, logits, -torch.inf)
+    logits = torch.where(pos < n, logits, -torch.inf)
     kk = min(window_size, C)
     top = torch.topk(logits + g, kk).indices
     pad = torch.zeros(window_size - kk, dtype=top.dtype, device=dev)
@@ -109,7 +141,7 @@ class StepFunctions:
     """The engine specialised to a config, a model and a camera."""
 
     def __init__(self, cfg: Config, model: M.SDFModel, H: int, W: int,
-                 dirs_C_img, device):
+                 dirs_C_img, device, eager: bool = False):
         self.cfg, self.model, self.H, self.W = cfg, model, H, W
         self.device = torch.device(device)
         self.dirs = dirs_C_img.to(self.device)
@@ -158,6 +190,12 @@ class StepFunctions:
         self.uses_kernel = bool(self.kernel_sources)
         self.adamw = make_fused_adamw(cfg.lr, cfg.weight_decay,
                                       b1=0.9, b2=0.999, eps=1e-8)
+        # the graph route on the card; ``eager`` keeps the plain loop there
+        self.eager = eager or not cuda
+        self.gen = torch.Generator(device=self.device)
+        self.graphs = None          # utils/graphs.GraphRunner, at first use
+        self._captured = {}         # key -> (Captured, input row, out row)
+        self._captured_on = None    # the tensors the graphs were captured on
 
     # ---------------- one step ----------------
     def surf_set(self, gen, pc, valid):
@@ -326,12 +364,17 @@ class StepFunctions:
                 buf.loss_approx[idxs])
 
     def core(self, params, opt_state, buf: FrameBuffer, transform, gen,
-             noise_std: float, lr_scale: float, tail: bool):
+             ins, tail: bool):
+        """One step in place -> its scalars. ``ins``: the step's row of
+        step_table on the device; ``tail`` and the arena's host fill count
+        pick the branches (graph_key)."""
         cfg = self.cfg
         Wn, n_rays, H, W = cfg.window_size, cfg.n_rays, self.H, self.W
         dev = self.device
+        noise_std, lr_scale = ins[0], ins[1]
         idxs, slot_valid = select_window(gen, buf.count, buf.frame_avg_loss,
-                                         Wn, tail=tail)
+                                         Wn, tail=tail,
+                                         count_t=ins[2].long())
         # the arena's rows of the window's slots: clamped where the arena
         # is smaller than the window, as isdf_tpu's gathers clamp (those
         # slots are padding, masked by slot_valid)
@@ -375,15 +418,74 @@ class StepFunctions:
                      lr_scale: float = 1.0, tail: bool = False,
                      step0: int = 0) -> Dict[str, torch.Tensor]:
         """Run n_steps steps in place; returns the per-step scalars stacked
-        [n_steps] on the device. Step step0 + t draws from a generator
-        seeded with step_seed(seed, step0 + t)."""
-        out = []
-        gen = torch.Generator(device=self.device)
-        for t in range(n_steps):
-            gen.manual_seed(step_seed(seed, step0 + t))
-            out.append(self.core(params, opt_state, buf, transform, gen,
-                                 noise_std, lr_scale, tail))
-        return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+        [n_steps] on the device. Step step0 + t draws from self.gen seeded
+        with step_seed(seed, step0 + t)."""
+        table = step_table(n_steps, noise_std, lr_scale, buf.count,
+                           self.device)
+        tail = bool(tail)
+        if self.eager:
+            out = []
+            for t in range(n_steps):
+                self.gen.manual_seed(step_seed(seed, step0 + t))
+                out.append(self.core(params, opt_state, buf, transform,
+                                     self.gen, table[t], tail))
+            return {k: torch.stack([o[k] for o in out]) for k in out[0]}
+        return self._graph_bundle(params, opt_state, buf, transform, seed,
+                                  table, n_steps, tail, step0)
+
+    def graph_key(self, buf: FrameBuffer, tail: bool):
+        """What a captured step bakes in from the host: select_window's
+        branch (count <= window), the refinement tail, and, where the arena
+        is smaller than the window, the fill count (the write-back slices
+        by it)."""
+        Wn = self.cfg.window_size
+        return (buf.count <= Wn, bool(tail),
+                buf.count if buf.capacity < Wn else None)
+
+    def _graph_bundle(self, params, opt_state, buf, transform, seed, table,
+                      n_steps, tail, step0):
+        from isdf_tpu_torch.utils import graphs as G
+        on = G.captured_on(
+            [params[k] for k in sorted(params)] + [opt_state["count"]]
+            + [opt_state[m][k] for m in ("mu", "nu")
+               for k in sorted(opt_state[m])]
+            + [buf.depth, buf.T_WC, buf.normals, buf.frame_avg_loss,
+               buf.loss_approx, transform], transform)
+        if not G.same_inputs(on, self._captured_on):
+            # new tensors (a checkpoint load) or an edited transform: the
+            # graphs would read stale addresses
+            self._captured.clear()
+            self._captured_on = on
+        if self.graphs is None:
+            self.graphs = G.GraphRunner(self.device)
+        key = self.graph_key(buf, tail)
+        rows, t0 = [], 0
+        if key not in self._captured:
+            def first():
+                self.gen.manual_seed(step_seed(seed, step0))
+                sc = self.core(params, opt_state, buf, transform, self.gen,
+                               table[0], tail)
+                return sorted(sc), torch.stack([sc[k] for k in sorted(sc)])
+            names, row = self.graphs.warm(first)
+            rows.append(row)
+            ins = torch.zeros(3, device=self.device)
+            out = torch.zeros(len(names), device=self.device)
+
+            def step():
+                sc = self.core(params, opt_state, buf, transform, self.gen,
+                               ins, tail)
+                out.copy_(torch.stack([sc[k] for k in names]))
+            graph = self.graphs.capture(step, generators=(self.gen,))
+            self._captured[key] = (graph, ins, out, names)
+            t0 = 1
+        graph, ins, out, names = self._captured[key]
+        for t in range(t0, n_steps):
+            self.gen.manual_seed(step_seed(seed, step0 + t))
+            ins.copy_(table[t])
+            graph.replay()
+            rows.append(out.clone())
+        stacked = torch.stack(rows)
+        return {k: stacked[:, i] for i, k in enumerate(names)}
 
     # ---------------- keyframe decision ----------------
     @torch.no_grad()

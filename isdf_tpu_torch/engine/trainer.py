@@ -10,9 +10,10 @@ spent optimising, scaled by 1/frac_time_perception, advances
 ``tot_step_time``; the current camera frame is int(tot_step_time * fps).
 On the card a bundle is billed its device time, read from CUDA events
 recorded around it on the stream (the reference's own timing,
-isdf/eval/metrics.py:13-38); on the CPU its wall time. Setting
-``_per_step_device_s`` bills a fixed time per step instead, capped at the
-measured time unless ``_bill_exact`` pins the clock exactly (replays).
+isdf/eval/metrics.py:13-38), a CUDA graph's capture included; on the CPU
+its wall time. Setting ``_per_step_device_s`` bills a fixed time per step
+instead, capped at the measured time unless ``_bill_exact`` pins the clock
+exactly (replays).
 
 ``incremental=False`` is the batch mode: the chosen views are loaded as
 keyframes at start and nothing is ingested later (reference
@@ -73,7 +74,8 @@ def check_supported(cfg: Config):
 
 class Trainer:
     def __init__(self, config, dataset=None, incremental: bool = True,
-                 grid_dim: int = 200, seed: int = 1, device=None):
+                 grid_dim: int = 200, seed: int = 1, device=None,
+                 eager: bool = False):
         self.device = resolve_device(device)
         self.cfg: Config = (load_config(config) if isinstance(config, str)
                             else config)
@@ -146,12 +148,14 @@ class Trainer:
             min_deg=0, max_deg=cfg.n_embed_funcs,
             gauss_embed=cfg.gauss_embed,
             gauss_embed_std=cfg.gauss_embed_std,
-            mm_precision=cfg.mm_precision)
+            mm_precision=cfg.mm_precision, compute_dtype=cfg.compute_dtype)
         self.params = M.init_params(torch.Generator().manual_seed(seed),
                                     self.model, device=self.device)
         self.frozen_params = M.copy_params(self.params)
+        # eager: the plain loops on the card too, steps and pose bursts
+        # (the yardstick of the CUDA graphs, engine/step.py)
         self.fns = StepFunctions(cfg, self.model, self.H, self.W,
-                                 self.dirs_C, self.device)
+                                 self.dirs_C, self.device, eager=eager)
         # build the step's kernel libraries now, outside the simulated clock
         nvcc.load_all(self.fns.kernel_sources)
         self.opt_state = fused_adamw.init_state(self.params)
@@ -191,16 +195,18 @@ class Trainer:
         if cfg.refine_poses:
             self.pose_state, _ = P.init_pose_state(cfg.kf_buffer_size,
                                                    device=self.device)
-            self._pose_step = P.PoseRefiner(
-                self.model, n_rays=cfg.n_rays,
-                n_surf_samples=cfg.n_surf_samples, min_depth=cfg.min_depth)
+            pose_kw = dict(n_rays=cfg.n_rays,
+                           n_surf_samples=cfg.n_surf_samples,
+                           min_depth=cfg.min_depth)
+            self._pose_step = P.PoseRefiner(self.model, eager=eager,
+                                            **pose_kw)
             self._pose_gen = torch.Generator(device=self.device)
             self._pose_gen.manual_seed(step_seed(seed, 0x505E))
-            # one burst at set-up: its first eigh initialises cuSOLVER,
-            # which the sim clock must not bill
+            # one eager burst at set-up: it sets up autograd and cuBLAS on
+            # the card, which the sim clock must not bill
             warm, _ = P.init_pose_state(cfg.kf_buffer_size,
                                         device=self.device)
-            self._pose_step(
+            P.PoseRefiner(self.model, eager=True, **pose_kw)(
                 self.params, warm,
                 torch.zeros((1, self.H, self.W), device=self.device),
                 torch.eye(4, device=self.device)[None],

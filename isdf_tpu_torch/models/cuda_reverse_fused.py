@@ -61,7 +61,7 @@ def rf_forward_cuda(params, model: SDFModel, pe, Tc):
                 graw_out=torch.empty(N, 3, device=dev))
     lib, suffix = _lib(model)
     K.launch(lib, "isdf_rf_forward", model, N, ptrs)
-    LAUNCHES["K2" + suffix] += 1
+    nvcc.count_launch(LAUNCHES, "K2" + suffix)
     return ptrs["raw_out"], ptrs["graw_out"]
 
 
@@ -74,7 +74,7 @@ def rf_backward_cuda(params, model: SDFModel, pe, Tc, draw, dgraw):
     ptrs.update(draw_in=draw, dg_in=dgraw)
     lib, suffix = _lib(model)
     K.launch(lib, "isdf_rf_backward", model, N, ptrs)
-    LAUNCHES["K3" + suffix] += 1
+    nvcc.count_launch(LAUNCHES, "K3" + suffix)
     return ptrs["dW"], ptrs["db"]
 
 

@@ -61,6 +61,11 @@ class SDFModel:
     mm_precision: str = "default"
     gauss_embed: bool = False
     gauss_embed_std: float = 11.0
+    # the eager forward's hidden dtype (tpu.compute_dtype): "bfloat16"
+    # casts the PE, the weights and the hidden activations to bf16 and
+    # keeps the output head in float32, as isdf_tpu's apply does; the
+    # kernels K1-K3 take their operand type from mm_precision instead
+    compute_dtype: str = "float32"
 
     @property
     def n_layers(self) -> int:
@@ -180,24 +185,74 @@ def copy_params(params: Params) -> Params:
     return {k: v.clone() for k, v in params.items()}
 
 
-def softplus_b100(x):
-    """Softplus with beta=100, the stable logaddexp form (reference
-    fc_map.py:51-55)."""
+# 0.01 rounded to bf16: in bf16 the constant takes the operand's type, as
+# isdf_tpu's weakly typed 0.01 does
+_BF16_HUNDREDTH = float(torch.tensor(0.01, dtype=torch.bfloat16))
+
+
+def _softplus_ops(x, c):
     z = 100.0 * x
-    return (torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-z.abs()))) * 0.01
+    return (torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-z.abs()))) * c
+
+
+class _SoftplusBf16(torch.autograd.Function):
+    """softplus_b100 in bf16 with isdf_tpu's derivative: JAX
+    differentiates logaddexp(z, 0) by its rule exp(z - softplus(z)), each
+    op rounded to bf16; autograd through the stable form would round
+    other intermediates. The backward recomputes from the saved input, so
+    a second derivative (the eikonal loss of the autograd routes) flows.
+    ``f32_out``: the last multiply in float32, unrounded (the activation
+    the float32 head reads)."""
+
+    @staticmethod
+    def forward(ctx, x, f32_out):
+        ctx.save_for_backward(x)
+        ctx.f32_out = f32_out
+        if f32_out:
+            return _softplus_ops(x, 1.0).float() * _BF16_HUNDREDTH
+        return _softplus_ops(x, _BF16_HUNDREDTH)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        z = 100.0 * x
+        sp = torch.clamp(z, min=0.0) + torch.log1p(torch.exp(-z.abs()))
+        g = (g * _BF16_HUNDREDTH).to(x.dtype)
+        return (g * torch.exp(z - sp)) * 100.0, None
+
+
+def softplus_b100(x, f32_out: bool = False):
+    """Softplus with beta=100, the stable logaddexp form (reference
+    fc_map.py:51-55), each op rounded to x's dtype. ``f32_out`` (bf16
+    only): the final scaling in float32, as isdf_tpu's jitted forward
+    leaves the activation its float32 head reads (XLA keeps the excess
+    precision of a bf16 result converted straight back to float32)."""
+    if x.dtype == torch.bfloat16:
+        return _SoftplusBf16.apply(x, f32_out)
+    return _softplus_ops(x, 0.01)
+
+
+def hidden_dtype(model: SDFModel) -> torch.dtype:
+    return (torch.bfloat16 if model.compute_dtype == "bfloat16"
+            else torch.float32)
 
 
 def apply(params: Params, x, model: SDFModel, transform=None):
-    """SDF value at world points x [..., 3] -> [...], float32."""
+    """SDF value at world points x [..., 3] -> [...], float32. The hidden
+    layers run in ``model.compute_dtype`` (each product, bias add and
+    activation rounded to it, as isdf_tpu's _linear and softplus are), the
+    output head in float32 (isdf_tpu sdf_mlp.py:113-131)."""
+    dt = hidden_dtype(model)
     layers = unpack(params, model)
-    pe = model.encode(params, x, transform=transform)
+    pe = model.encode(params, x, transform=transform).to(dt)
     h = pe
+    last = len(layers) - 2
     for l, (w, b) in enumerate(layers[:-1]):
         if l == model.cat_idx:
             h = torch.cat([h, pe], dim=-1)
-        h = softplus_b100(h @ w + b)
+        h = softplus_b100(h @ w.to(dt) + b.to(dt), f32_out=l == last)
     w, b = layers[-1]
-    return (h @ w + b)[..., 0] * model.scale_output
+    return (h.float() @ w + b)[..., 0] * model.scale_output
 
 
 def apply_with_noise(params, x, model: SDFModel, gen, noise_std,
@@ -220,6 +275,12 @@ def sdf_and_grad(params, x, model: SDFModel, transform=None):
     return sdf.detach(), g
 
 
+def _scale(model: SDFModel) -> float:
+    """scale_input as float32: a Python number multiplies a float32
+    tensor in float32, and needs no copy to the card."""
+    return float(np.float32(model.scale_input))
+
+
 def _pe_factored(x, model: SDFModel, transform):
     """The PE of points x [N, 3] with its Jacobian in factored form:
     (pe [N,E], cos_b [N,2F], dxs [3,3], dproj2 [3,2F]), F = 21 * n_freqs
@@ -230,9 +291,8 @@ def _pe_factored(x, model: SDFModel, transform):
     sin(xb + pi/2)."""
     dev = x.device
     nf = emb.n_freqs(model.min_deg, model.max_deg)
-    b = emb.bands(model.min_deg, model.max_deg).to(dev)
-    D = torch.from_numpy(emb.ICOSAHEDRON_DIRS.T.copy()).to(dev)  # [3,21]
-    s = torch.tensor(model.scale_input, dtype=torch.float32, device=dev)
+    b, D = emb._device_consts(model.min_deg, model.max_deg, dev)  # D [3,21]
+    s = _scale(model)
     if transform is not None:
         T = torch.as_tensor(transform, dtype=torch.float32, device=dev)
         R, t = T[:3, :3], T[:3, 3]
@@ -263,9 +323,8 @@ def _pe_consts(model: SDFModel, transform, device="cpu"):
       dxs [3, 3], dproj2 [3, 2F] — the PE Jacobian's constant factors.
     """
     nf = emb.n_freqs(model.min_deg, model.max_deg)
-    b = emb.bands(model.min_deg, model.max_deg).to(device)
-    D = torch.from_numpy(emb.ICOSAHEDRON_DIRS.T.copy()).to(device)  # [3,21]
-    s = torch.tensor(model.scale_input, dtype=torch.float32, device=device)
+    b, D = emb._device_consts(model.min_deg, model.max_deg, device)
+    s = _scale(model)
     if transform is not None:
         T = torch.as_tensor(transform, dtype=torch.float32, device=device)
         R, t = T[:3, :3], T[:3, 3]

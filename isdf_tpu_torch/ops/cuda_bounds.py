@@ -133,7 +133,7 @@ def closest_surface_ix_cuda(points, surf, surf_valid, geometry=None):
               [M, R, points.stride(0), surf.stride(0), surf_valid.stride(0),
                g["threads"], g["splits"], g["ppt"], g["points"], g["chunk"],
                g["blocks"], g["smem"]], points.device)
-    LAUNCHES["K4"] += 1
+    nvcc.count_launch(LAUNCHES, "K4")
     return out
 
 

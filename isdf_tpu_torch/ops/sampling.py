@@ -67,8 +67,11 @@ def stratified_sample(u, min_depth, max_depth):
     """One sample per bin between min_depth and per-ray max_depth [R], at
     the uniform draws u [R, n_bins]. Returns [R, n_bins]."""
     R, n_bins = u.shape
-    min_d = torch.as_tensor(min_depth, dtype=max_depth.dtype,
-                            device=max_depth.device).expand(R)
+    if isinstance(min_depth, torch.Tensor):
+        min_d = min_depth.to(max_depth).expand(R)
+    else:   # filled on the device: no copy from the host
+        min_d = torch.full((R,), float(min_depth), dtype=max_depth.dtype,
+                           device=max_depth.device)
     sample_range = (max_depth - min_d)[:, None]
     lims = torch.linspace(0.0, 1.0, n_bins + 1, dtype=max_depth.dtype,
                           device=max_depth.device)[None, :]

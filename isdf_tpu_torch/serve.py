@@ -20,7 +20,9 @@ turned into CHOMP or linear collision costs (reference metrics.py:95-113).
 
 A query is cut into chunks of ``chunk_size`` points, run on the engine's
 device, gathered there and fetched once. The forward and its gradient are
-the eager float32 ``apply`` / ``sdf_and_grad``. A served map owns a copy
+the eager ``apply`` / ``sdf_and_grad``, in the map's compute dtype (a
+map trained with ``tpu.compute_dtype: "bfloat16"`` is served in bf16, as
+isdf_tpu serves it). A served map owns a copy
 of the parameters, since the trainer updates its own in place;
 ``refresh_from_trainer`` swaps in a new copy atomically.
 """
@@ -101,7 +103,8 @@ class SDFQueryEngine:
                     min_deg=0, max_deg=config.n_embed_funcs,
                     gauss_embed=config.gauss_embed,
                     gauss_embed_std=config.gauss_embed_std,
-                    mm_precision=config.mm_precision)
+                    mm_precision=config.mm_precision,
+                    compute_dtype=config.compute_dtype)
             elif "model" in meta:
                 model = CK.model_from_meta(meta["model"])
             else:

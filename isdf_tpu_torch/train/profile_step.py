@@ -12,10 +12,15 @@ pinned at 1/300 s per step. After 300 steps of multi_scene_loop it times
 20 more rounds of 10 steps per scene (MultiSceneStepper.run_steps) twice:
 once bare, once under torch.profiler tracing the card only. Prints, per
 round and per scene-step, the host-clock time of both (the difference is
-what tracing costs), the device time from the stepper's CUDA events and,
-read from the exported trace, the kernels by device time and the device's
-idle share: 1 - (union of kernel intervals) / (first kernel start to last
-kernel end).
+what tracing costs), the billed device time (the stepper's CUDA events,
+the trainers' ``measured_s``) and, read from the exported trace, the
+kernels by device time and the device's idle share: 1 - (union of kernel
+intervals) / (first kernel start to last kernel end); also the CUDA graph
+replays and captures (engine/step.py), and the peak memory.
+
+The steps run as replays of captured CUDA graphs, the trainers' route on
+the card. ``profile()`` returns the readings for chip_smoke.py; its
+``eager=True`` runs the plain loop of steps instead (the yardstick).
 """
 
 from __future__ import annotations
@@ -53,76 +58,112 @@ def busy_us(intervals):
     return total
 
 
-def main(argv=None):
-    from torch.profiler import ProfilerActivity, profile
+def profile(overrides=(), scenes: int = 1, eager: bool = False,
+            warmup: int = WARMUP, steps: int = STEPS, bundle: int = BUNDLE):
+    """Readings of K = ``scenes`` trainers stepped in lockstep, ``steps``
+    steps per scene timed after ``warmup``: host wall (bare and traced),
+    billed device time, kernel time, kernels and graph replays per
+    scene-step, the idle share of the traced window, peak memory, the
+    captures and their seconds, and the kernels by device time (a dict)."""
+    from torch.profiler import ProfilerActivity, profile as trace
 
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.parallel.multi_scene import (MultiSceneStepper,
                                                      multi_scene_loop)
     from isdf_tpu_torch.utils.config import load_config
 
+    K = scenes
+    cfg = load_config(CONFIG, overrides=list(overrides) or None)
+    torch.cuda.reset_peak_memory_stats()
+    trainers = [Trainer(cfg, seed=1 + i, eager=eager) for i in range(K)]
+    stepper = MultiSceneStepper(trainers)
+    stepper._per_step_device_s, stepper._bill_exact = 1.0 / 300, True
+    multi_scene_loop(trainers, max_steps=warmup, stepper=stepper)
+    n_calls = steps // bundle
+    n = K * n_calls * bundle   # scene-steps timed
+
+    def replays():
+        return sum(t.fns.graphs.stats["replays"] for t in trainers
+                   if t.fns.graphs is not None)
+
+    def timed():
+        torch.cuda.synchronize()
+        dev0, r0, t0 = stepper.measured_s, replays(), time.perf_counter()
+        for _ in range(n_calls):
+            stepper.run_steps(bundle)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, stepper.measured_s - dev0,
+                replays() - r0)
+
+    stepper.run_steps(bundle)
+    wall_bare, dev, n_replays = timed()
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_traced, _, _ = timed()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        ivs = kernel_intervals(path)
+    stats = [t.fns.graphs.stats for t in trainers if t.fns.graphs]
+    out = dict(
+        card=torch.cuda.get_device_name(0), scenes=K, eager=eager,
+        overrides=list(overrides), scene_steps=n, bundle=bundle,
+        host_ms_bare=1e3 * wall_bare / n, host_ms_traced=1e3 * wall_traced / n,
+        billed_device_ms=1e3 * dev / n, replays_per_step=n_replays / n,
+        captures=sum(s["captures"] for s in stats),
+        capture_s=sum(s["capture_s"] for s in stats),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        kernels_per_step=len(ivs) / n, kernel_ms=None, idle_share=None,
+        by_kernel={})
+    if ivs:
+        by_name = defaultdict(lambda: [0.0, 0])
+        for _, dur, name in ivs:
+            by_name[name][0] += dur
+            by_name[name][1] += 1
+        window = max(s + d for s, d, _ in ivs) - min(s for s, _, _ in ivs)
+        out.update(
+            kernel_ms=sum(v[0] for v in by_name.values()) / 1e3 / n,
+            idle_share=1.0 - busy_us(ivs) / window,
+            by_kernel={k: (v[0] / 1e3 / n, v[1] / n)
+                       for k, v in by_name.items()})
+    return out
+
+
+def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scenes", type=int, default=1,
                         help="copies of the config stepped in lockstep")
     parser.add_argument("overrides", nargs="*", metavar="SECTION.KEY=VALUE")
     args = parser.parse_args(argv)
-    K = args.scenes
-    cfg = load_config(CONFIG, overrides=args.overrides or None)
-    trainers = [Trainer(cfg, seed=1 + i) for i in range(K)]
-    stepper = MultiSceneStepper(trainers)
-    stepper._per_step_device_s, stepper._bill_exact = 1.0 / 300, True
-    multi_scene_loop(trainers, max_steps=WARMUP, stepper=stepper)
-    n_calls = STEPS // BUNDLE
-    steps = K * STEPS   # scene-steps timed
-
-    def timed():
-        torch.cuda.synchronize()
-        dev0, t0 = stepper.measured_s, time.perf_counter()
-        for _ in range(n_calls):
-            stepper.run_steps(BUNDLE)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, stepper.measured_s - dev0
-
-    stepper.run_steps(BUNDLE)
-    wall_bare, dev = timed()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_traced, _ = timed()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        ivs = kernel_intervals(path)
-
-    print(f"card: {torch.cuda.get_device_name(0)}; scenes: {K}; "
-          f"overrides: {args.overrides}")
-    print(f"timed: {n_calls} rounds of {BUNDLE} steps per scene "
-          f"({steps} scene-steps)")
-    for what, v in (("host wall, bare", wall_bare),
-                    ("host wall, traced", wall_traced),
-                    ("device time (CUDA events around rounds, bare)", dev)):
-        print(f"{what}: {1e3 * v / n_calls:.4f} ms per round, "
-              f"{1e3 * v / steps:.4f} ms per scene-step")
-    print(f"max memory allocated: "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
-    if not ivs:
+    r = profile(args.overrides, scenes=args.scenes)
+    n, rounds = r["scene_steps"], STEPS // BUNDLE
+    K = r["scenes"]
+    print(f"card: {r['card']}; scenes: {K}; overrides: {args.overrides}; "
+          f"route: CUDA graphs")
+    print(f"timed: {rounds} rounds of {BUNDLE} steps per scene "
+          f"({n} scene-steps)")
+    for what, key in (("host wall, bare", "host_ms_bare"),
+                      ("host wall, traced", "host_ms_traced"),
+                      ("billed device time (CUDA events around rounds, "
+                       "bare)", "billed_device_ms")):
+        print(f"{what}: {r[key] * n / rounds:.4f} ms per round, "
+              f"{r[key]:.4f} ms per scene-step")
+    print(f"graph replays: {r['replays_per_step']:.2f} per scene-step; "
+          f"captures: {r['captures']} in {r['capture_s']:.3f} s")
+    print(f"max memory allocated: {r['peak_memory_gb']:.3f} GB")
+    if r["kernel_ms"] is None:
         print("the trace holds no device kernels")
         return
-    by_name = defaultdict(lambda: [0.0, 0])
-    for _, dur, name in ivs:
-        by_name[name][0] += dur
-        by_name[name][1] += 1
-    kernel_us = sum(v[0] for v in by_name.values())
-    window = max(s + d for s, d, _ in ivs) - min(s for s, _, _ in ivs)
-    print(f"kernel time: {kernel_us / 1e3 / n_calls:.4f} ms per round, "
-          f"{kernel_us / 1e3 / steps:.4f} ms per scene-step; kernels: "
-          f"{len(ivs) / n_calls:.1f} per round, {len(ivs) / steps:.1f} per "
-          f"scene-step")
-    print(f"traced device window per round: {window / 1e3 / n_calls:.4f} "
-          f"ms; idle share: {1.0 - busy_us(ivs) / window:.4f}")
+    print(f"kernel time: {r['kernel_ms'] * n / rounds:.4f} ms per round, "
+          f"{r['kernel_ms']:.4f} ms per scene-step; kernels: "
+          f"{r['kernels_per_step'] * n / rounds:.1f} per round, "
+          f"{r['kernels_per_step']:.1f} per scene-step")
+    print(f"device kernels and graph replays are counted apart; traced "
+          f"window idle share: {r['idle_share']:.4f}")
     print(f"{'device ms/step':>14} {'share':>7} {'calls/step':>10}  kernel")
-    for name, (us, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :20]:
-        print(f"{us / 1e3 / steps:14.4f} {us / kernel_us:7.4f} "
-              f"{cnt / steps:10.2f}  {name[:90]}")
+    for name, (ms, cnt) in sorted(r["by_kernel"].items(),
+                                  key=lambda kv: -kv[1][0])[:20]:
+        print(f"{ms:14.4f} {ms / r['kernel_ms']:7.4f} {cnt:10.2f}  "
+              f"{name[:90]}")
 
 
 if __name__ == "__main__":

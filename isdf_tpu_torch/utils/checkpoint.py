@@ -53,7 +53,8 @@ from isdf_tpu_torch.models import sdf_mlp as M
 # SDFModel fields stored in the meta, isdf_tpu's SDFModel keywords
 MODEL_KEYS = ("embedding_size", "hidden_size", "hidden_layers_block",
               "scale_output", "scale_input", "min_deg", "max_deg",
-              "gauss_embed", "gauss_embed_std", "mm_precision")
+              "gauss_embed", "gauss_embed_std", "compute_dtype",
+              "mm_precision")
 
 
 def tree_leaves(tree):
@@ -81,17 +82,18 @@ def tree_unflatten(template, leaves):
 
 
 def model_meta(model: M.SDFModel) -> Dict[str, Any]:
-    """The model description isdf_tpu stores (its SDFModel keywords); the
-    port computes in float32."""
-    d = {k: getattr(model, k) for k in MODEL_KEYS}
-    d["compute_dtype"] = "float32"
-    return d
+    """The model description isdf_tpu stores (its SDFModel keywords, the
+    compute dtype as "bfloat16" or "float32")."""
+    return {k: getattr(model, k) for k in MODEL_KEYS}
 
 
 def model_from_meta(desc: Dict[str, Any]) -> M.SDFModel:
-    """SDFModel from a stored description. isdf_tpu's compute_dtype has no
-    counterpart: the port's eager forward runs in float32."""
-    return M.SDFModel(**{k: v for k, v in desc.items() if k in MODEL_KEYS})
+    """SDFModel from a stored description; an archive without a compute
+    dtype computes in float32, as isdf_tpu reads it."""
+    d = {k: v for k, v in desc.items() if k in MODEL_KEYS}
+    d["compute_dtype"] = ("bfloat16" if d.get("compute_dtype") == "bfloat16"
+                          else "float32")
+    return M.SDFModel(**d)
 
 
 def read_meta(z) -> Dict[str, Any]:
@@ -138,7 +140,7 @@ def save_checkpoint(path: str, trainer, step: int = 0):
     opt = trainer.opt_state
     trees = [
         ("params", tree_leaves(M.params_to_jax(trainer.params, m))),
-        ("opt", [np.asarray(opt["count"], np.int32)]
+        ("opt", [_np(opt["count"]).astype(np.int32)]
          + tree_leaves(M.params_to_jax(opt["mu"], m))
          + tree_leaves(M.params_to_jax(opt["nu"], m))),
         ("buf", _buffer_leaves(trainer.buffer)),
@@ -186,7 +188,8 @@ def _read_opt(z, template, model, device):
                          "nu) in the model's layout")
     leaves = _read_leaves(z, "opt/", [np.zeros(())] + refs * 2)
     mu, nu = leaves[1:1 + len(refs)], leaves[1 + len(refs):]
-    return {"count": int(leaves[0]),
+    return {"count": torch.full((), int(leaves[0]), dtype=torch.int32,
+                                device=device),
             "mu": M.params_from_jax(tree_unflatten(template, mu), model,
                                     device=device),
             "nu": M.params_from_jax(tree_unflatten(template, nu), model,

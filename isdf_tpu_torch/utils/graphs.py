@@ -1,0 +1,105 @@
+"""CUDA graphs for the port's hot loops: a training step and a pose burst
+(isdf_tpu jits a bundle of steps and a burst as one compiled program each;
+here each is one captured step replayed).
+
+``GraphRunner`` owns a side stream and a memory pool of the card. ``warm``
+runs a function eagerly on the side stream: a key's first call, which sets
+up what a capture cannot (autograd's device thread, cuBLAS's workspace on
+that stream, lazily loaded kernels) and counts as a call like any other.
+``capture`` records a function's launches as a CUDA graph on that stream;
+the returned ``Captured`` replays them on the current stream. The kernels'
+launch counts of a capture are tallied (utils/nvcc.py) and added once per
+replay. The generators the function draws from are registered with the
+graph: a replay reads each one's seed and offset when it starts and
+advances the offset as the eager call would, so ``manual_seed`` before a
+replay gives the eager call's draws.
+
+A failed capture raises; nothing carries on eagerly in its place. The
+caller keeps a captured function's inputs at fixed addresses: a graph
+reads and writes the tensors it was captured with.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from isdf_tpu_torch.utils import nvcc
+
+
+def captured_on(tensors, transform):
+    """What a set of graphs was captured on: the tensors they read (the
+    objects, held, so that an address cannot come to name another tensor)
+    and the version of the scene transform (an edit in place bumps it)."""
+    return (tuple(tensors), getattr(transform, "_version", None))
+
+
+def same_inputs(a, b) -> bool:
+    """Whether two captured_on records name the same tensors and
+    transform version."""
+    return (a is not None and b is not None and a[1] == b[1]
+            and len(a[0]) == len(b[0])
+            and all(x is y for x, y in zip(a[0], b[0])))
+
+
+class Captured:
+    """A captured function: ``replay()`` runs its launches once."""
+
+    def __init__(self, graph, tally, owner):
+        self.graph, self.tally, self._owner = graph, tally, owner
+
+    def replay(self, times: int = 1):
+        for _ in range(times):
+            self.graph.replay()
+        nvcc.add_tally(self.tally, times)
+        self._owner.stats["replays"] += times
+
+
+class GraphRunner:
+    """Warm-up and capture of functions on one side stream of a card, the
+    graphs sharing one memory pool. A shared pool is safe here because the
+    owner reads a graph's outputs before it replays another graph of the
+    same runner, and never replays two at once."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+
+    def warm(self, fn):
+        """fn() eagerly on the side stream, ordered after the current
+        stream's work and before its later work."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        return out
+
+    def capture(self, fn, generators=()) -> Captured:
+        """Record fn()'s launches as a graph; fn runs once, on the host
+        only. Its tensors come from the runner's pool and stay valid for
+        the graph's replays."""
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream), nvcc.capture_tally() as tally:
+            graph.capture_begin(pool=self.pool)
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:   # the capture is invalid already
+                    pass
+                raise
+            graph.capture_end()
+        cur.wait_stream(self.stream)
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+        return Captured(graph, list(tally), self)

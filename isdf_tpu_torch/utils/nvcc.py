@@ -11,6 +11,12 @@ waits for all of them; a failed build raises with nvcc's output.
 Every entry point of a library takes (ptrs, knobs, ints, stream): three
 arrays and PyTorch's current stream. ``call`` declares those argument types,
 launches, and raises if the C function returns a CUDA error code.
+
+Launch counts: each kernel's wrapper adds one to its count by
+``count_launch`` where it launches. Inside a CUDA graph capture
+(``capture_tally``) nothing launches, so the launch is noted in the
+capture's tally instead, and the graph's owner adds the tally once per
+replay (``add_tally``).
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ BUILD_INFO = {}
 _LIBS = {}
 _LOCK = threading.Lock()
 _SRC_DIR = [CSRC]
+# the tally of the capture in progress in this process, else None
+_TALLY = [None]
 
 
 def build_dir() -> str:
@@ -132,3 +140,31 @@ def call(lib, fn_name: str, ptrs, knobs, ints, device) -> None:
     rc = fn(p_arr, k_arr, i_arr, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed, CUDA error {rc}")
+
+
+def count_launch(counter: dict, key: str) -> None:
+    """Add one launch of ``key`` to ``counter``; during a capture with a
+    tally, note it in the tally (the graph launches it at each replay)."""
+    tally = _TALLY[0]
+    if tally is not None and torch.cuda.is_current_stream_capturing():
+        tally.append((counter, key))
+    else:
+        counter[key] += 1
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collect the launches of the kernels captured inside the block:
+    yields the list of (counter, key) they add at each replay."""
+    old, tally = _TALLY[0], []
+    _TALLY[0] = tally
+    try:
+        yield tally
+    finally:
+        _TALLY[0] = old
+
+
+def add_tally(tally, times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture noted ``tally``."""
+    for counter, key in tally:
+        counter[key] += times

@@ -523,3 +523,103 @@ def test_f32_trainer_launches_the_f32_kernel_once_per_step_on_card():
     assert {k: K.LAUNCHES[k] - n0[k] for k in n0} == {
         k: 40 if k == "K1-pc-f32" else 0 for k in n0}
     assert res.steps == 40
+
+
+def _graph_trainer(eager, **knobs):
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import Config
+    cam = Config().camera.__class__(160, 120, 100.0, 100.0, 79.5, 59.5)
+    cfg = Config().replace(dataset_format="synthetic", bounds_method="pc",
+                           kf_buffer_size=7, camera=cam, **knobs)
+    tr = Trainer(cfg, eager=eager)
+    tr._per_step_device_s, tr._bill_exact = 1.0 / 300, True
+    return tr
+
+
+def _graph_schedule(tr, cuts):
+    """Nine keyframes into a 7-row arena (the window branch switches, two
+    evictions), then the tail; the per-step total losses."""
+    out = []
+    for fid in range(0, 90, 10):
+        tr.last_is_keyframe = True
+        tr.add_frame(tr.get_data([fid])[0])
+        for n in cuts:
+            out.extend(tr.run_steps(n)["total_loss"].tolist())
+    tr.tail_mode, tr.noise_std = True, 0.0
+    for n in cuts:
+        out.extend(tr.run_steps(n)["total_loss"].tolist())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [
+    {}, dict(pe_in_kernel=False, use_pallas=True),
+    dict(grad_mode="reverse_fused", use_pallas=True),
+    dict(compute_dtype="bfloat16", grad_mode="auto")],
+    ids=["K1-pc", "K1-stream+K4", "reverse_fused+K4", "auto-bf16"])
+def test_graph_route_equals_eager_on_card(knobs):
+    """Replays of the captured step give the eager loop's bits, bundles
+    cut differently; a kernel's launches count once a step either way."""
+    _need_card()
+    counts = (K.LAUNCHES, CB.LAUNCHES, CRF.LAUNCHES)
+    runs = []
+    for eager, cuts in ((True, (5,)), (False, (2, 3))):
+        tr = _graph_trainer(eager, **knobs)
+        n0 = {k: v for d in counts for k, v in d.items()}
+        losses = _graph_schedule(tr, cuts)
+        n1 = {k: v for d in counts for k, v in d.items()}
+        runs.append((tr, losses, {k: n1[k] - n0[k] for k in n1}))
+    (te, le, ne), (tg, lg, ng) = runs
+    assert le == lg and ne == ng
+    assert all(v in (0, 50) for v in ne.values())
+    for a, b in ((te.params, tg.params), (te.opt_state["mu"],
+                                          tg.opt_state["mu"])):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(te.buffer.loss_approx, tg.buffer.loss_approx)
+    assert tg.fns.graphs.stats["captures"] == 3
+    assert tg.fns.graphs.stats["replays"] == 47
+
+
+@pytest.mark.cuda
+def test_graph_bundle_does_not_sync_on_card():
+    """A bundle of a captured key runs under the sync debug mode's
+    "error": nothing in it waits on the host."""
+    _need_card()
+    tr = _graph_trainer(False)
+    tr.last_is_keyframe = True
+    tr.add_frame(tr.get_data([0])[0])
+    tr.run_steps(3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.fns.train_bundle(tr.params, tr.opt_state, tr.buffer,
+                            tr.transform_dev, tr._bundle_seed, 0.04,
+                            n_steps=5, step0=tr.steps_taken)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_pose_burst_graph_equals_eager_on_card():
+    _need_card()
+    from isdf_tpu_torch.engine import pose as P
+    tr = _graph_trainer(True, refine_poses=True)
+    for fid in (0, 20):
+        tr.last_is_keyframe = True
+        tr.add_frame(tr.get_data([fid])[0])
+    tr.run_steps(30)
+    rows = torch.arange(2, device="cuda")
+    res = []
+    for eager in (True, False):
+        ref = P.PoseRefiner(tr.model, n_rays=50, eager=eager)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        state, _ = P.init_pose_state(7, device="cuda")
+        out = []
+        for _ in range(3):
+            state, losses = ref(tr.params, state, tr.buffer.depth[rows],
+                                tr.buffer.T_WC[rows], rows, tr.fns.dirs,
+                                tr.transform_dev, gen, n_steps=4)
+            out.append((state.twists.clone(), losses.clone()))
+        res.append(out)
+    assert all(torch.equal(a, b) for x, y in zip(*res)
+               for a, b in zip(x, y))

@@ -249,7 +249,7 @@ PORT_MODULES = [
     "isdf_tpu_torch.data.replicaCAD_gt_sdf", "isdf_tpu_torch.vis.slices",
     "isdf_tpu_torch.parallel.multi_scene", "isdf_tpu_torch.train.train_multi",
     "isdf_tpu_torch.train.batch", "isdf_tpu_torch.eval.baselines",
-    "isdf_tpu_torch.eval.figs",
+    "isdf_tpu_torch.eval.figs", "isdf_tpu_torch.utils.graphs",
 ]
 
 
@@ -295,11 +295,12 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_tpu_only_knobs_are_inert(monkeypatch):
-    """pallas_interpret, remat, compute_dtype and the Pallas environment
-    variables change nothing in the port: same step, same numbers. Nor
-    does use_pallas on this path, where the fused op computes the pc bounds
-    itself (it selects K4 only for pc bounds computed outside the op, as in
-    isdf_tpu)."""
+    """pallas_interpret, remat and the Pallas environment variables change
+    nothing in the port: same step, same numbers. Nor do use_pallas on this
+    path, where the fused op computes the pc bounds itself (it selects K4
+    only for pc bounds computed outside the op, as in isdf_tpu), and
+    compute_dtype, which the fused op ignores as isdf_tpu's Pallas op does
+    (tests/test_torch_bf16.py holds the eager forward it does change)."""
     from isdf_tpu_torch.engine.trainer import Trainer
     out = []
     for knobs in ({}, dict(use_pallas=True, pallas_interpret=True,

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase; needs one CUDA device
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --graphs-only    # build, then phase 10 only
+    python3 chip_smoke.py --vis-only       # build, then phase 11 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
   1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
@@ -127,7 +128,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      idle share, peak memory, captures and their seconds, on the pc, ray,
      streamed + K4 and pc-f32 paths and at K = 2 and 4; the 600-step
      run's wall both ways and the burst's ms;
- 11. print the card, the kernels' JSON line, and the result line.
+ 11. train_vis (train/train_vis.py) through its main() on the shipped
+     synthetic.json at full width (K1-pc on CUDA graphs), the clock pinned
+     at 0.02 s a step through _spy_trainer, 600 steps, a monitor cycle at
+     each of the shipped 1-s evals: K1-pc once a step and no other
+     kernel; every cycle's keyframe strip, latest panel and four slices
+     and the eight turntable views there, non-empty, decoding with the
+     port's codec; the parameters bit for bit, and the captures, those of
+     the same run under train_loop with a hook that draws nothing (a
+     first such run before it takes the process's warm-up); the
+     rasteriser (host C++, vis/raster.py) on an analytic ellipsoid's
+     marching-tets mesh: its silhouette within 1% of the convex hull of
+     the projected vertices, two renders the same bytes; it prints the
+     monitor's seconds a cycle by part, the vis share of perf_summary(),
+     the turntable's triangles and ms a view, the billed device ms a
+     step with and without the monitor, and the phase's wall (under 90 s);
+ 12. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -1320,14 +1336,16 @@ DATA_AV_L1 = 0.30   # the last visible-region av_l1 of the fixture runs
 LIVE_FRAMES = 60    # frames pre-rendered for the live and recorded runs
 
 
-def _spy_trainer(fn):
+def _spy_trainer(fn, before=None):
     """fn() with the loop's train_loop wrapped: (fn's result, the trainer
-    the loop ran)."""
+    the loop ran). ``before(trainer)`` runs as the loop starts."""
     from isdf_tpu_torch.engine import loop as LOOP
     seen, orig = {}, LOOP.train_loop
 
     def spy(trainer, **kw):
         seen["tr"] = trainer
+        if before is not None:
+            before(trainer)
         return orig(trainer, **kw)
 
     LOOP.train_loop = spy
@@ -2460,9 +2478,229 @@ def graph_phase(torch):
     out["wall_s"] = time.perf_counter() - t0
     return out
 
+# ---------------------------------------------------------------------------
+# phase 11: train_vis, its live monitor and the 3-D renders
+# ---------------------------------------------------------------------------
+
+VIS_STEPS = 600
+# the pinned clock: 0.02 s a step, so that 600 steps span 12 s of simulated
+# time (the first frame's 200-step bundle 4 s of it) and the shipped
+# eval.eval_freq_s (1 s) calls the monitor about 9 times
+VIS_DT = 0.02
+VIS_EVERY_S = 1.0
+SPHERE_DIM, SPHERE_R = 96, 0.8   # the rasteriser's check: grid, radius
+
+
+def hull_area(xy):
+    """Area of the convex hull of 2-D points (monotone chain)."""
+    import numpy as np
+    p = sorted(map(tuple, np.asarray(xy, np.float64)))
+
+    def half(pts):
+        h = []
+        for q in pts:
+            while len(h) >= 2 and ((h[-1][0] - h[-2][0]) * (q[1] - h[-2][1])
+                                   - (h[-1][1] - h[-2][1])
+                                   * (q[0] - h[-2][0])) <= 0:
+                h.pop()
+            h.append(q)
+        return h
+
+    hull = half(p)[:-1] + half(p[::-1])[:-1]
+    x, y = np.array(hull).T
+    return 0.5 * abs(np.dot(x, np.roll(y, 1)) - np.dot(y, np.roll(x, 1)))
+
+
+def raster_check():
+    """The rasteriser on this host: an analytic sphere's marching-tets
+    mesh rendered at a known view. The sphere is convex, so its silhouette
+    is the convex hull of its projected vertices: the rendered non-white
+    area must be within 1% of the hull's, and two renders the same
+    bytes."""
+    import numpy as np
+
+    from isdf_tpu_torch.utils import mesh3d, native
+    from isdf_tpu_torch.vis import viewer as V
+
+    g = np.linspace(-1, 1, SPHERE_DIM)
+    X, Y, Z = np.meshgrid(g, g, g, indexing="ij")
+    sdf = np.sqrt(X ** 2 + 1.3 * Y ** 2 + Z ** 2) - SPHERE_R
+    sp = 2.0 / (SPHERE_DIM - 1)
+    verts, faces = mesh3d.marching_tetrahedra(
+        sdf, spacing=(sp, sp, sp), origin=(-1.0, -1.0, -1.0))
+    expect(native.CALLS["marching_tets"] > 0, "marching tets not native")
+    t0 = time.perf_counter()
+    expect(native.load("raster") is not None, "raster.cpp did not build")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    view = V.mesh_view(verts, faces, azim=30.0, elev=20.0, size=1280)
+    img = view.render()
+    ms = 1e3 * (time.perf_counter() - t0)
+    img2 = V.render_mesh_image(verts, faces, azim=30.0, elev=20.0,
+                               size=1280)
+    px, py, _ = view.project(view.proj(), verts)
+    area = float((img != 255).any(-1).sum())
+    hull = hull_area(np.stack([px, py], 1))
+    out = dict(triangles=int(len(faces)), build_s=build_s, render_ms=ms,
+               area_px=area,
+               hull_px=hull, rel_gap=abs(area - hull) / hull,
+               same_bytes=bool(np.array_equal(img, img2)))
+    print(f"vis [raster check]: {json.dumps(out)}", flush=True)
+    expect(out["rel_gap"] < 0.01, f"raster: silhouette {area:.0f} px "
+           f"against the hull's {hull:.0f}")
+    expect(out["same_bytes"], "raster: two renders differ")
+    return out
+
+
+def vis_phase(torch, root):
+    """Phase 11: train_vis through its main() on the card at full width
+    on the shipped synthetic.json (K1-pc on CUDA graphs), the clock pinned
+    at VIS_DT through _spy_trainer; its files, its launches, the bits and
+    captures of the same run under train_loop with a hook that draws
+    nothing; the rasteriser's check; the monitor's seconds by part."""
+    import numpy as np
+
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.train import train_vis as TVIS
+    from isdf_tpu_torch.utils import image_io as IO
+    from isdf_tpu_torch.utils.config import load_config
+    from isdf_tpu_torch.vis import mesh_export as ME
+    from isdf_tpu_torch.vis import raster as RS
+    from isdf_tpu_torch.vis import viewer as V
+
+    t0 = time.perf_counter()
+    out = {"raster": raster_check()}
+
+    def pin(tr):
+        tr._per_step_device_s, tr._bill_exact = VIS_DT, True
+
+    def plain_run(torch, root, name):
+        plain = Trainer(load_config(CONFIG), seed=1)
+        pin(plain)
+        os.makedirs(os.path.join(root, name))
+        tp = time.perf_counter()
+        res_p = train_loop(plain, max_steps=VIS_STEPS,
+                           eval_hook=lambda t: {},
+                           save_path=os.path.join(root, name))
+        torch.cuda.synchronize()
+        return plain, res_p, time.perf_counter() - tp
+
+    # a first plain run pays the process's warm-up (lazy CUDA and cuBLAS
+    # set-up, the first captures), so the monitored run and the plain run
+    # after it are timed alike
+    cold, _, wall_cold = plain_run(torch, root, "cold")
+    cold_ms = 1e3 * cold.measured_s / VIS_STEPS
+    del cold
+
+    times, turn = {}, {"views_ms": []}
+    make_hook, turntable = TVIS.make_hook, V.mesh_turntable
+    render, reconstruct = RS.View3D.render, ME.reconstruct_mesh
+
+    def timed_render(view):
+        t = time.perf_counter()
+        img = render(view)
+        turn["views_ms"].append(1e3 * (time.perf_counter() - t))
+        return img
+
+    def timed_reconstruct(*a, **kw):
+        t = time.perf_counter()
+        vf = reconstruct(*a, **kw)
+        turn["mesh_s"] = time.perf_counter() - t
+        return vf
+
+    def timed_turntable(*a, **kw):
+        t = time.perf_counter()
+        turn["triangles"] = turntable(*a, **kw)
+        turn["turntable_s"] = time.perf_counter() - t
+        return turn["triangles"]
+
+    save = os.path.join(root, "vis")
+    TVIS.make_hook = lambda *a, **kw: make_hook(*a, times=times, **kw)
+    V.mesh_turntable, RS.View3D.render = timed_turntable, timed_render
+    ME.reconstruct_mesh = timed_reconstruct
+    try:
+        reset_launches()
+        tw = time.perf_counter()
+        res, tr = _spy_trainer(lambda: TVIS.main(
+            ["--config", CONFIG, "--save_path", save, "--max_steps",
+             str(VIS_STEPS), "--monitor_every_s", str(VIS_EVERY_S)]),
+            before=pin)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches = read_launches()
+    finally:
+        TVIS.make_hook, V.mesh_turntable = make_hook, turntable
+        RS.View3D.render, ME.reconstruct_mesh = render, reconstruct
+    expect(res.steps == VIS_STEPS, f"train_vis: {res.steps} steps")
+    expect(launches["K1-pc"] == res.steps
+           and all(v == 0 for k, v in launches.items() if k != "K1-pc"),
+           f"train_vis: launches {launches}")
+
+    # the files: every cycle's six PNGs and the turntable's eight
+    mon = os.path.join(save, "monitor")
+    n = times.get("cycles", 0)
+    expect(n >= 5, f"train_vis: {n} monitor cycles")
+    names = [f"{i:04d}_{k}.png" for i in range(n)
+             for k in ("keyframes", "latest", "pred_0", "pred_1", "gt_0",
+                       "gt_1")]
+    names += [os.path.join("final_mesh", f"view_{i:02d}.png")
+              for i in range(8)]
+    for name in names:
+        path = os.path.join(mon, name)
+        expect(os.path.exists(path) and os.path.getsize(path) > 0,
+               f"train_vis: {name} missing")
+        im = IO.imread(path)
+        expect(im.ndim == 3 and im.shape[2] == 3 and im.size > 0,
+               f"train_vis: {name} does not decode")
+    extra = set(os.listdir(mon)) - {os.path.basename(x) for x in names}
+    expect(extra == {"final_mesh"}, f"train_vis: unexpected {extra}")
+
+    # the same run with a hook that draws nothing: the same bits, the
+    # same captures
+    bal = tr.perf_summary()
+    plain, res_p, wall_p = plain_run(torch, root, "plain")
+    expect(res_p.steps == res.steps, "plain run: steps differ")
+    for k in plain.params:
+        expect(same_bits(torch, plain.params[k], tr.params[k]),
+               f"train_vis: parameter {k} differs from the plain run's")
+    caps = [t.fns.graphs.stats["captures"] for t in (tr, plain)]
+    expect(caps[0] == caps[1], f"train_vis: captures {caps}")
+    total = sum(v for k, v in bal.items() if k != "steps_per_sec")
+    views = turn["views_ms"]
+    out.update(
+        steps=res.steps, cycles=n, launches=launches["K1-pc"],
+        captures=caps[0], wall_s=wall, plain_wall_s=wall_p,
+        cycle_s={k: times.get(k, 0.0) / max(n, 1)
+                 for k in ("latest", "write", "slices")},
+        vis_share=bal.get("vis", 0.0) / total if total else 0.0,
+        balance=bal, triangles=turn.get("triangles", 0),
+        mesh_s=turn.get("mesh_s"), turntable_s=turn.get("turntable_s"),
+        view_ms=sum(views) / max(len(views), 1),
+        device_ms_per_step=1e3 * tr.measured_s / res.steps,
+        device_ms_per_step_plain=1e3 * plain.measured_s / res_p.steps,
+        device_ms_per_step_cold=cold_ms, cold_wall_s=wall_cold)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"vis: {json.dumps(out)}", flush=True)
+    print(f"vis: monitor s a cycle: latest render "
+          f"{out['cycle_s']['latest']:.4f}, slices "
+          f"{out['cycle_s']['slices']:.4f}, write "
+          f"{out['cycle_s']['write']:.4f}; mesh (sparse grid + marching "
+          f"tets) {out['mesh_s']:.3f} s; {out['triangles']} triangles, "
+          f"{out['view_ms']:.1f} ms a turntable view; vis share "
+          f"{out['vis_share']:.4f}; billed device ms/step "
+          f"{out['device_ms_per_step']:.4f} with the monitor, "
+          f"{out['device_ms_per_step_plain']:.4f} without (a first, "
+          f"cold run {cold_ms:.4f}); phase 11 "
+          f"{out['phase_s']:.1f} s wall", flush=True)
+    expect(out["phase_s"] < 90, f"phase 11: {out['phase_s']:.1f} s wall")
+    return out
+
+
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
     graphs_only = "--graphs-only" in sys.argv[1:]
+    vis_only = "--vis-only" in sys.argv[1:]
     t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2491,6 +2729,10 @@ def main():
             f"{k} {v}" for k, v in occ.items()), flush=True)
     if graphs_only:
         print(f"graphs: {json.dumps(graph_phase(torch))}", flush=True)
+        return
+    if vis_only:
+        with tempfile.TemporaryDirectory() as work:
+            vis_phase(torch, work)
         return
 
     # ---- phase 2: kernels vs plain versions ----
@@ -2577,13 +2819,17 @@ def main():
         readings["multi"]["wall_s"] = time.perf_counter() - t9
     # ---- phase 10: the CUDA-graph route against the eager loop ----
     readings["graphs"] = graph_phase(torch)
+    # ---- phase 11: train_vis, the live monitor and the renders ----
+    with tempfile.TemporaryDirectory() as work:
+        readings["vis"] = vis_phase(torch, work)
     readings["wall_s"] = time.perf_counter() - t_main
     print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; phase 10: "
-          f"{readings['graphs']['wall_s']:.1f} s; the script to here: "
+          f"{readings['graphs']['wall_s']:.1f} s; phase 11: "
+          f"{readings['vis']['phase_s']:.1f} s; the script to here: "
           f"{readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 11: report ----
+    # ---- phase 12: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -45,3 +45,6 @@ class FrameStore:
     @property
     def frame_ids(self) -> np.ndarray:
         return np.array([f.frame_id for f in self.frames], np.int64)
+
+    def T_WC_batch_np(self) -> np.ndarray:
+        return np.stack([f.T_WC for f in self.frames])

@@ -5,8 +5,10 @@ per-run vox_res.json / res.json files (the port's runs, isdf_tpu's and the
 reference's shipped exp0 runs share the schema), aggregates mean +/- std
 over the seeded repeats of a sequence, and writes slice comparisons as
 PNGs (utils/image_io.py). The three matplotlib figures, ``plot_fig8``,
-``plot_all_seq`` and ``plot_per_seq``, wait for the port's viewer slice
-(a rasteriser with text): the card machine has no matplotlib.
+``plot_all_seq`` and ``plot_per_seq``, are not ported yet (ROADMAP A.4):
+the card machine has no matplotlib, and the port's own drawing has its
+3-D rasteriser (vis/raster.py) and cv2's text (vis/text.py) but no 2-D
+axes, line plots or legends yet.
 """
 
 import glob
@@ -139,8 +141,9 @@ def aggregate_exp0(root: str, seq: str, metric: str = "sdf",
 
 
 _PLOTS_LATER = ("{} draws with matplotlib, which the port does not use; it "
-                "is ported with the viewer slice (vis/*), which brings a "
-                "rasteriser with text")
+                "waits for the viewer's 2-D plots (ROADMAP A.4: axes, "
+                "lines, legends), beside the rasteriser (vis/raster.py) "
+                "and text (vis/text.py) already in place")
 
 
 def plot_fig8(isdf_root: str, out_file: str, **kw):

@@ -1,13 +1,15 @@
 """Host-side C++ helpers, built with g++ at first use and loaded through
 ctypes (isdf_tpu/utils/native.py).
 
-``csrc/marching_tets.cpp`` (a copy of isdf_tpu's) and
-``csrc/image_codec.cpp`` (the PNG/JPEG byte work of utils/image_io.py) are
+``csrc/marching_tets.cpp`` (a copy of isdf_tpu's),
+``csrc/image_codec.cpp`` (the PNG/JPEG byte work of utils/image_io.py) and
+``csrc/raster.cpp`` (the fill of vis/raster.py's 3-D renders) are
 compiled with -O3 into the port's build directory (utils/nvcc.py::
 build_dir, which .gitignore lists), keyed by the hash of the source.
-Without a compiler the callers fall back to the numpy implementations;
-``CALLS`` counts the calls that the native library served (and, for the
-image codec, the ones numpy served), so a caller can tell which ran.
+Without a compiler the mesh and codec callers fall back to their numpy
+implementations (the rasteriser has none and raises); ``CALLS`` counts
+the calls that the native library served (and, for the image codec, the
+ones numpy served), so a caller can tell which ran.
 """
 
 from __future__ import annotations
@@ -88,6 +90,22 @@ def _build(name: str) -> Optional[ctypes.CDLL]:
         lib.jpeg_encode_scan.argtypes = [
             i16, ctypes.c_long, ctypes.c_int, u8, ctypes.c_int, u8, u8,
             ctypes.c_long]
+    if name == "raster":
+        f32 = ctypes.POINTER(ctypes.c_float)
+        f64 = ctypes.POINTER(ctypes.c_double)
+        i, n = ctypes.c_int, ctypes.c_long
+        for fn, args in (
+                ("raster_tris", [f32, i, i, f64,
+                                 ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.POINTER(ctypes.c_int64), f32, n]),
+                ("raster_discs", [f32, i, i, f64, f32, n,
+                                  ctypes.c_double]),
+                ("raster_polyline", [f32, i, i, f64, n, ctypes.c_double,
+                                     f32, i]),
+                ("raster_segments", [f32, i, i, f64, n, ctypes.c_double,
+                                     f32])):
+            getattr(lib, fn).restype = None
+            getattr(lib, fn).argtypes = args
     return lib
 
 

@@ -250,6 +250,10 @@ PORT_MODULES = [
     "isdf_tpu_torch.parallel.multi_scene", "isdf_tpu_torch.train.train_multi",
     "isdf_tpu_torch.train.batch", "isdf_tpu_torch.eval.baselines",
     "isdf_tpu_torch.eval.figs", "isdf_tpu_torch.utils.graphs",
+    "isdf_tpu_torch.vis.colormaps", "isdf_tpu_torch.vis.text",
+    "isdf_tpu_torch.vis.raster", "isdf_tpu_torch.vis.views",
+    "isdf_tpu_torch.vis.viewer", "isdf_tpu_torch.vis.composite",
+    "isdf_tpu_torch.vis.display", "isdf_tpu_torch.train.train_vis",
 ]
 
 

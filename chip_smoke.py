@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --graphs-only    # build, then phase 10 only
     python3 chip_smoke.py --vis-only       # build, then phase 11 only
+    python3 chip_smoke.py --serve-only     # build, then phase 12 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
   1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
@@ -143,7 +144,33 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      monitor's seconds a cycle by part, the vis share of perf_summary(),
      the turntable's triangles and ms a view, the billed device ms a
      step with and without the monitor, and the phase's wall (under 90 s);
- 12. print the card, the kernels' JSON line, and the result line.
+ 12. the HTTP viewer (vis/server.py) beside the loop, the loop's live
+     controls and device work off the loop's thread: (a) train_vis
+     --serve --serve-queries through its main() as in phase 11, with a
+     client process of four threads from the first step to the end (two
+     cycling through every GET route of the viewer, one POSTing control
+     toggles, one planner POSTing 65,536-point /sdf requests): every
+     response 200 but the keyframe strip before the first frame, at least
+     one refresh on the loop's thread and no map evaluation on any other,
+     K1-pc once a step, the parameters' bits and the captures of a plain
+     run; three such runs, each after a plain run, their median billed
+     device ms a step less the captures' seconds within 3% of the plain
+     runs' median (a capture is 0.01-0.2 s of host work billed with its
+     bundle; the full bills are printed beside), and each loop's wall,
+     less its own monitor and refresh seconds, at most twice its plain
+     run's; (b) the
+     capture stress run: phase 10's keyed schedule (and a 4-row arena's)
+     on graphs with planner threads querying the engine in a tight loop,
+     every capture overlapping a query, no error, the eager loop's bits;
+     (c) a pause over HTTP at about step 200 for 2 s: two status reads 1 s
+     apart the same steps and sim time, then the plain run's bits and
+     clock; (d) iters_per_step 5 through the viewer's controls: no bundle
+     over 5 steps, 600 in all. It prints the median ms per route, the
+     refresh s at grid_dim 200, the planner's points/s while training,
+     the bills and walls with and without clients, and the phase's wall
+     (under 120 s); --serve-only runs it alone after the
+     build;
+ 13. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -1336,9 +1363,10 @@ DATA_AV_L1 = 0.30   # the last visible-region av_l1 of the fixture runs
 LIVE_FRAMES = 60    # frames pre-rendered for the live and recorded runs
 
 
-def _spy_trainer(fn, before=None):
+def _spy_trainer(fn, before=None, after=None):
     """fn() with the loop's train_loop wrapped: (fn's result, the trainer
-    the loop ran). ``before(trainer)`` runs as the loop starts."""
+    the loop ran). ``before(trainer)`` runs as the loop starts,
+    ``after(trainer)`` as it returns."""
     from isdf_tpu_torch.engine import loop as LOOP
     seen, orig = {}, LOOP.train_loop
 
@@ -1346,7 +1374,11 @@ def _spy_trainer(fn, before=None):
         seen["tr"] = trainer
         if before is not None:
             before(trainer)
-        return orig(trainer, **kw)
+        try:
+            return orig(trainer, **kw)
+        finally:
+            if after is not None:
+                after(trainer)
 
     LOOP.train_loop = spy
     try:
@@ -2552,6 +2584,27 @@ def raster_check():
     return out
 
 
+def _vis_pin(tr):
+    tr._per_step_device_s, tr._bill_exact = VIS_DT, True
+
+
+def _plain_vis_run(torch, root, name):
+    """The shipped config under train_loop for VIS_STEPS steps, the clock
+    pinned at VIS_DT, with a hook that draws nothing: (trainer, result,
+    wall s)."""
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import load_config
+    plain = Trainer(load_config(CONFIG), seed=1)
+    _vis_pin(plain)
+    os.makedirs(os.path.join(root, name))
+    tp = time.perf_counter()
+    res = train_loop(plain, max_steps=VIS_STEPS, eval_hook=lambda t: {},
+                     save_path=os.path.join(root, name))
+    torch.cuda.synchronize()
+    return plain, res, time.perf_counter() - tp
+
+
 def vis_phase(torch, root):
     """Phase 11: train_vis through its main() on the card at full width
     on the shipped synthetic.json (K1-pc on CUDA graphs), the clock pinned
@@ -2560,31 +2613,15 @@ def vis_phase(torch, root):
     nothing; the rasteriser's check; the monitor's seconds by part."""
     import numpy as np
 
-    from isdf_tpu_torch.engine.loop import train_loop
-    from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.train import train_vis as TVIS
     from isdf_tpu_torch.utils import image_io as IO
-    from isdf_tpu_torch.utils.config import load_config
     from isdf_tpu_torch.vis import mesh_export as ME
     from isdf_tpu_torch.vis import raster as RS
     from isdf_tpu_torch.vis import viewer as V
 
     t0 = time.perf_counter()
     out = {"raster": raster_check()}
-
-    def pin(tr):
-        tr._per_step_device_s, tr._bill_exact = VIS_DT, True
-
-    def plain_run(torch, root, name):
-        plain = Trainer(load_config(CONFIG), seed=1)
-        pin(plain)
-        os.makedirs(os.path.join(root, name))
-        tp = time.perf_counter()
-        res_p = train_loop(plain, max_steps=VIS_STEPS,
-                           eval_hook=lambda t: {},
-                           save_path=os.path.join(root, name))
-        torch.cuda.synchronize()
-        return plain, res_p, time.perf_counter() - tp
+    pin, plain_run = _vis_pin, _plain_vis_run
 
     # a first plain run pays the process's warm-up (lazy CUDA and cuBLAS
     # set-up, the first captures), so the monitored run and the plain run
@@ -2697,10 +2734,582 @@ def vis_phase(torch, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the HTTP viewer beside the loop, the loop's live controls, and
+# device work off the loop's thread while a step is captured
+# ---------------------------------------------------------------------------
+
+# the capture stress run: phase 10's keyed schedule (the 7-row arena) and a
+# 4-row arena (smaller than the window, so every fill count is a key of its
+# own: more captures), planners querying from other threads throughout
+STRESS_ARENAS = (GRAPH_ARENA, "tpu.kf_buffer_size=4")
+PLANNER_POINTS = 65536   # points of a planner's /sdf request
+PLANNER_BOX = 3.0        # planners' points uniform in [-3, 3]^3 m
+
+
+class Planners:
+    """Threads that query an SDFQueryEngine in a tight loop, as planners
+    beside a running trainer do: sdf at PLANNER_POINTS, sdf at sizes drawn
+    from 1..PLANNER_POINTS (new shapes, new allocations) and grad at 4,096
+    points. Each call's (start, end) on time.perf_counter() goes into
+    ``intervals``; an exception ends its thread and goes into
+    ``errors``."""
+
+    def __init__(self, engine, seed=0):
+        import threading
+        self.engine, self.intervals, self.errors = engine, [], []
+        self.points = 0
+        self.stop_event = threading.Event()
+        self.threads = [threading.Thread(target=self._run, args=(k, seed + i),
+                                         daemon=True)
+                        for i, k in enumerate(("sdf", "sdf-any", "grad"))]
+
+    def _run(self, kind, seed):
+        import numpy as np
+        rng = np.random.default_rng(seed)
+        while not self.stop_event.is_set():
+            n = {"sdf": PLANNER_POINTS, "grad": 4096}.get(kind) or int(
+                rng.integers(1, PLANNER_POINTS + 1))
+            pts = rng.uniform(-PLANNER_BOX, PLANNER_BOX,
+                              (n, 3)).astype(np.float32)
+            t0 = time.perf_counter()
+            try:
+                v = (self.engine.grad(pts) if kind == "grad"
+                     else self.engine.sdf(pts))
+                expect(v.shape[0] == n and np.isfinite(v).all(),
+                       f"planner {kind}: {v.shape}, non-finite values")
+            except Exception as e:   # reported by the phase
+                self.errors.append(f"{kind}: {e!r}")
+                return
+            self.intervals.append((t0, time.perf_counter()))
+            self.points += n
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def stop(self):
+        self.stop_event.set()
+        for t in self.threads:
+            t.join(timeout=120)
+        expect(not any(t.is_alive() for t in self.threads),
+               "planners: a thread did not stop")
+
+
+def overlaps(caps, queries):
+    """For each capture interval, whether some query interval meets it."""
+    return [any(q0 < c1 and q1 > c0 for q0, q1 in queries)
+            for c0, c1 in caps]
+
+
+def capture_stress(torch):
+    """Phase 10's keyed schedule on the graph route with planners querying
+    from other threads throughout: every capture must overlap a query, no
+    planner may fail, and the run must keep the eager loop's bits.
+    Returns the readings."""
+    import numpy as np
+
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.serve import SDFQueryEngine
+    from isdf_tpu_torch.utils.config import load_config
+
+    out = {}
+    for arena in STRESS_ARENAS:
+        cfg = load_config(CONFIG, overrides=[arena])
+        eager = Trainer(cfg, seed=1, eager=True)
+        (le,) = _keyed_run(torch, [eager], GRAPH_CUTS["eager"])
+        tr = Trainer(cfg, seed=1)
+        planners = Planners(SDFQueryEngine.from_trainer(tr)).start()
+        err = None
+        try:
+            (lg,) = _keyed_run(torch, [tr], GRAPH_CUTS["graph"])
+            torch.cuda.synchronize()
+        except Exception as e:   # reported below
+            err, lg = repr(e), None
+        finally:
+            planners.stop()
+        caps = list(tr.fns.graphs.stats["intervals"]) if tr.fns.graphs \
+            else []
+        hit = overlaps(caps, planners.intervals)
+        same = (err is None and np.array_equal(le, lg)
+                and all(torch.equal(x, y) for x, y in
+                        zip(_train_state(eager), _train_state(tr))))
+        out[arena] = r = dict(
+            steps=tr.steps_taken, captures=len(caps),
+            captures_overlapped=sum(hit), queries=len(planners.intervals),
+            planner_points=planners.points, loop_error=err,
+            planner_errors=planners.errors, same_bits=same,
+            capture_ms=[round(1e3 * (b - a), 3) for a, b in caps])
+        print(f"serve [capture stress, {arena}]: {json.dumps(r)}",
+              flush=True)
+        del eager, tr, planners
+        torch.cuda.empty_cache()
+    return out
+
+
+SERVE_PAUSE_AT = 200      # steps before the pause run pauses
+SERVE_CAP = 5             # iters_per_step of the capped run
+SERVE_BILL_TOL = 0.03     # billed ms/step with clients against without
+SERVE_REPS = 3            # watched runs, for the bill's spread
+# a watched loop's wall, less its own monitor and refresh seconds, against
+# the plain loop's: the clients' requests may not hold the loop back more
+SERVE_WALL_RATIO = 2.0
+CLIENT_PACE_S = 0.05      # a GET cycler's pause between requests
+CONTROL_PACE_S = 0.5      # the control poster's
+ROUTE_KINDS = ("index", "meta", "status", "control", "query", "slice",
+               "render", "scene", "keyframes", "refresh")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _client_main(vport, qport, stop, results, seed=0):
+    """The client process of the watched run: four threads until ``stop``
+    is set, then one dict of what they saw into ``results``. Two cycle
+    through the viewer's GET routes, one POSTs control toggles, one is a
+    planner POSTing PLANNER_POINTS-point /sdf requests. Each request:
+    (start s, kind, HTTP code, ms)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    log, planner = [], {"points": 0, "s": 0.0, "requests": 0, "bad": 0}
+
+    def call(kind, url, body=None):
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    url, data=body, method="GET" if body is None
+                    else "POST"), timeout=300) as r:
+                code, data = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, data = e.code, b""
+        except OSError:   # the server is not up yet
+            return None
+        log.append((t0, kind, code, 1e3 * (time.perf_counter() - t0)))
+        return data
+
+    v, q = f"http://127.0.0.1:{vport}", f"http://127.0.0.1:{qport}"
+    while call("meta", v + "/api/meta") is None and not stop.is_set():
+        time.sleep(0.02)
+
+    def cycler(k):
+        rng = np.random.default_rng(seed + k)
+        i = 0
+        # one whole cycle at least, however short the run
+        while not stop.is_set() or i < len(ROUTE_KINDS):
+            a = 90 * (i % 4)
+            n = rng.integers(0, 200, 3)
+            route = {
+                "index": "/", "meta": "/api/meta", "status": "/api/status",
+                "control": "/api/control",
+                "query": "/api/query?i={}&r={}&c={}".format(*n),
+                "slice": f"/api/slice/{n[0]}.png",
+                "render": f"/api/render.png?azim={a}&elev=25",
+                "scene": f"/api/scene.png?azim={a}&elev=25&zoom=1",
+                "keyframes": "/api/keyframes.png",
+                "refresh": "/api/refresh"}
+            kind = ROUTE_KINDS[(i + 5 * k) % len(ROUTE_KINDS)]
+            call(kind, v + route[kind])
+            i += 1
+            time.sleep(CLIENT_PACE_S)
+
+    def controls():
+        rng = np.random.default_rng(seed + 7)
+        keys = ("do_mesh", "do_slices", "scene_mesh", "scene_frustums",
+                "scene_traj", "scene_pc")
+        while not stop.is_set():
+            d = {k: bool(rng.integers(0, 2)) for k in keys}
+            call("post_control", v + "/api/control", json.dumps(d).encode())
+            time.sleep(CONTROL_PACE_S)
+
+    def plan():
+        rng = np.random.default_rng(seed + 11)
+        body = json.dumps({"points": rng.uniform(
+            -PLANNER_BOX, PLANNER_BOX, (PLANNER_POINTS, 3)).tolist()}).encode()
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            data = call("sdf", q + "/sdf", body)
+            if data is None:
+                time.sleep(0.02)
+                continue
+            sdf = np.asarray(json.loads(data or b'{"sdf": []}').get(
+                "sdf", []), np.float32)
+            planner["bad"] += int(sdf.shape != (PLANNER_POINTS,)
+                                  or not np.isfinite(sdf).all())
+            planner["points"] += len(sdf)
+            planner["requests"] += 1
+            planner["s"] += time.perf_counter() - t0
+
+    threads = [threading.Thread(target=f, args=a, daemon=True) for f, a in
+               ((cycler, (0,)), (cycler, (1,)), (controls, ()),
+                (plan, ()))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    results.put({"log": log, "planner": planner})
+
+
+def _route_medians(log):
+    """Median ms per route kind of the requests that answered 200."""
+    import numpy as np
+    by = {}
+    for _, kind, code, ms in log:
+        if code == 200:
+            by.setdefault(kind, []).append(ms)
+    return {k: float(np.median(v)) for k, v in sorted(by.items())}
+
+
+def _thread_spy(cls, name, calls):
+    """Wrap cls.name to record (thread ident, seconds) of each call into
+    ``calls``. Returns the original."""
+    import threading
+    orig = getattr(cls, name)
+
+    def spy(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *a, **kw)
+        finally:
+            calls.append((threading.get_ident(),
+                          time.perf_counter() - t0))
+
+    setattr(cls, name, spy)
+    return orig
+
+
+def _bill(tr):
+    """A run's bill: billed device ms a step, the seconds of its captures
+    (billed with the bundles they fall in: host work that varies by tens
+    of ms from run to run, some 3% of a 600-step run's bill) and billed ms
+    a step less them."""
+    cap = tr.fns.graphs.stats["capture_s"]
+    return dict(device_ms_per_step=1e3 * tr.measured_s / VIS_STEPS,
+                capture_s=cap,
+                steps_ms_per_step=1e3 * (tr.measured_s - cap) / VIS_STEPS)
+
+
+def _watched_once(torch, root, name):
+    """One train_vis --serve --serve-queries run with the client process.
+    Returns its readings and trainer; the checks that need no other run
+    are made here."""
+    import multiprocessing
+    import threading
+
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.train import train_vis as TVIS
+    from isdf_tpu_torch.vis import server as SV
+
+    vport, qport = _free_port(), _free_port()
+    ctx = multiprocessing.get_context("spawn")
+    stop, results = ctx.Event(), ctx.Queue()
+    client = ctx.Process(target=_client_main,
+                         args=(vport, qport, stop, results), daemon=True)
+    client.start()
+    seen, webs, main_id, times = {}, [], threading.get_ident(), {}
+    refreshes, evals = [], []
+    origs = [(SV.ViewerSource, "refresh",
+              _thread_spy(SV.ViewerSource, "refresh", refreshes))]
+    for fn in ("get_sdf_grid", "sdf_fn", "grad_fn"):
+        origs.append((Trainer, fn, _thread_spy(Trainer, fn, evals)))
+    start, make_hook = SV.SDFWebViewer.start, TVIS.make_hook
+
+    def record(self):
+        webs.append(self)
+        return start(self)
+
+    def before(tr):
+        _vis_pin(tr)
+        seen["loop_t0"] = time.perf_counter()
+
+    def after(tr):
+        torch.cuda.synchronize()
+        seen["loop_s"] = time.perf_counter() - seen["loop_t0"]
+        # the clients stop while the servers still answer
+        stop.set()
+        seen["clients"] = results.get(timeout=600)
+
+    SV.SDFWebViewer.start = record
+    TVIS.make_hook = lambda *a, **kw: make_hook(*a, times=times, **kw)
+    try:
+        reset_launches()
+        tw = time.perf_counter()
+        res, tr = _spy_trainer(lambda: TVIS.main(
+            ["--config", CONFIG, "--save_path", os.path.join(root, name),
+             "--max_steps", str(VIS_STEPS), "--monitor_every_s",
+             str(VIS_EVERY_S), "--serve", str(vport), "--serve-queries",
+             str(qport)]), before=before, after=after)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tw
+        launches = read_launches()
+    finally:
+        stop.set()
+        SV.SDFWebViewer.start, TVIS.make_hook = start, make_hook
+        for cls, fn, orig in origs:
+            setattr(cls, fn, orig)
+        client.join(timeout=60)
+        if client.is_alive():
+            client.kill()
+    expect(res.steps == VIS_STEPS, f"{name}: {res.steps} steps")
+    expect(launches["K1-pc"] == res.steps
+           and all(v == 0 for k, v in launches.items() if k != "K1-pc"),
+           f"{name}: launches {launches}")
+    log, planner = seen["clients"]["log"], seen["clients"]["planner"]
+    first_kf = min([t for t, k, c, _ in log if k == "keyframes" and c == 200],
+                   default=float("inf"))
+    bad = [(k, c) for t, k, c, _ in log if c != 200
+           and not (k == "keyframes" and c == 404 and t < first_kf)]
+    expect(not bad, f"{name}: responses {bad[:10]}")
+    kinds = {k for _, k, c, _ in log if c == 200}
+    expect(kinds >= set(ROUTE_KINDS) | {"post_control", "sdf"},
+           f"{name}: routes answered {sorted(kinds)}")
+    expect(planner["requests"] > 0 and planner["bad"] == 0,
+           f"{name}: planner {planner}")
+    expect(refreshes and all(i == main_id for i, _ in refreshes),
+           f"{name}: {len(refreshes)} refreshes, threads "
+           f"{sorted({i for i, _ in refreshes})}, loop thread {main_id}")
+    expect(all(i == main_id for i, _ in evals),
+           f"{name}: the map evaluated off the loop's thread")
+    (web,) = webs
+    return dict(
+        steps=res.steps, launches=launches["K1-pc"],
+        captures=tr.fns.graphs.stats["captures"], wall_s=wall,
+        loop_s=seen["loop_s"],
+        # the loop thread's own viewer work: monitor cycles and refreshes
+        loop_vis_s=sum(times.get(k, 0.0) for k in
+                       ("latest", "write", "slices", "refresh")),
+        requests=len(log), route_ms=_route_medians(log),
+        refreshes_on_loop=len(refreshes),
+        planner_points_per_s=planner["points"] / max(planner["s"], 1e-9),
+        planner_requests=planner["requests"],
+        **_bill(tr)), tr, web
+
+
+def _watched_run(torch, root):
+    """Phase 12 (a): SERVE_REPS pairs of a plain run and a watched, queried
+    run, each watched run held to the first plain run's bits and to its
+    pair's captures; the median bill less captures with clients within
+    SERVE_BILL_TOL of the plain runs' (see _bill), and
+    each watched loop's wall, less its own monitor and refresh seconds,
+    within SERVE_WALL_RATIO of its pair's plain loop. Returns the readings
+    and the first plain run's trainer."""
+    import numpy as np
+
+    runs, plains, plain = [], [], None
+    for i in range(SERVE_REPS):
+        # the last run's garbage is not collected inside this one's bundles
+        gc.collect()
+        p, _, wall_p = _plain_vis_run(torch, root, f"served_plain_{i}")
+        plains.append(dict(wall_s=wall_p,
+                           captures=p.fns.graphs.stats["captures"],
+                           **_bill(p)))
+        if plain is None:
+            plain = p
+        del p
+        gc.collect()
+        r, tr, web = _watched_once(torch, root, f"served_{i}")
+        for k in plain.params:
+            expect(same_bits(torch, plain.params[k], tr.params[k]),
+                   f"watched run {i}: parameter {k} differs from the plain "
+                   "run's")
+        r["loop_wall_ratio"] = (r["loop_s"] - r["loop_vis_s"]) / wall_p
+        runs.append(r)
+        del tr
+    # the refresh at grid_dim 200, timed alone on the last run's final map
+    t = time.perf_counter()
+    web.source.refresh()
+    refresh_s = time.perf_counter() - t
+    del web
+    med = {k: [float(np.median([r[k] for r in rs])) for rs in (runs, plains)]
+           for k in ("device_ms_per_step", "steps_ms_per_step", "capture_s")}
+    out = dict(runs=runs, plains=plains, medians=med,
+               refresh_s_grid200=refresh_s)
+    print(f"serve [watched]: {json.dumps(out)}", flush=True)
+
+    def row(k, fmt):
+        return " / ".join(", ".join(fmt.format(r[k]) for r in rs)
+                          for rs in (runs, plains))
+    print("serve [watched]: with clients / without: billed device ms/step "
+          + row("device_ms_per_step", "{:.4f}") + "; captures s "
+          + row("capture_s", "{:.4f}") + "; billed ms/step less captures "
+          + row("steps_ms_per_step", "{:.4f}") + "; the loop's wall less "
+          "its own viewer work against its plain loop's " + ", ".join(
+              f"{r['loop_wall_ratio']:.2f}x" for r in runs), flush=True)
+    expect(all(r["captures"] == p["captures"] for r, p in zip(runs, plains)),
+           f"watched run: captures {[r['captures'] for r in runs]} against "
+           f"{[p['captures'] for p in plains]}")
+    w, p = med["steps_ms_per_step"]
+    expect(abs(w - p) <= SERVE_BILL_TOL * p,
+           f"watched run: billed {w:.4f} ms/step less captures with "
+           f"clients, {p:.4f} without (medians)")
+    expect(all(r["loop_wall_ratio"] <= SERVE_WALL_RATIO for r in runs),
+           "watched run: the loop's wall against the plain loop's " + ", ".join(
+               f"{r['loop_wall_ratio']:.2f}x" for r in runs))
+    return out, plain
+
+
+def _status(port):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/status",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _pause_run(torch, root, plain):
+    """Phase 12 (c): train_vis --serve paused over HTTP at about step
+    SERVE_PAUSE_AT for over 2 s of wall: the steps stand for 1.2 s, then
+    two status reads 1 s apart are the same; then the plain run's bits
+    and clock."""
+    import threading
+    import urllib.request
+
+    from isdf_tpu_torch.train import train_vis as TVIS
+
+    port, out = _free_port(), {}
+
+    def post(d):
+        urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/api/control",
+            data=json.dumps(d).encode(), method="POST"), timeout=60).read()
+
+    def controller():
+        try:
+            while True:
+                try:
+                    s = _status(port)
+                except OSError:
+                    time.sleep(0.02)
+                    continue
+                if s["steps"] >= SERVE_PAUSE_AT:
+                    break
+                time.sleep(0.01)
+            post({"paused": True})
+            t0 = time.perf_counter()
+            # the loop ends its bundle and monitor cycle, then sits in its
+            # control hook: wait for the steps to stand for 1.2 s
+            last, since = _status(port)["steps"], time.perf_counter()
+            while time.perf_counter() - since < 1.2:
+                time.sleep(0.1)
+                n = _status(port)["steps"]
+                if n != last:
+                    last, since = n, time.perf_counter()
+            out["a"] = _status(port)
+            time.sleep(1.0)
+            out["b"] = _status(port)
+            out["paused_s"] = time.perf_counter() - t0
+        finally:
+            post({"paused": False})
+
+    th = threading.Thread(target=controller, daemon=True)
+    th.start()
+    res, tr = _spy_trainer(lambda: TVIS.main(
+        ["--config", CONFIG, "--save_path", os.path.join(root, "paused"),
+         "--max_steps", str(VIS_STEPS), "--monitor_every_s",
+         str(VIS_EVERY_S), "--serve", str(port)]), before=_vis_pin)
+    th.join(timeout=60)
+    expect(not th.is_alive() and "b" in out, "pause run: no pause read")
+    a, b = out["a"], out["b"]
+    expect(a["paused"] and (a["steps"], a["sim_time_s"])
+           == (b["steps"], b["sim_time_s"]) and a["steps"] < res.steps
+           and out["paused_s"] >= 2.0, f"pause run: status {a} then {b} "
+           f"over {out['paused_s']:.2f} s")
+    for k in plain.params:
+        expect(same_bits(torch, plain.params[k], tr.params[k]),
+               f"pause run: parameter {k} differs from the plain run's")
+    expect(tr.tot_step_time == plain.tot_step_time,
+           f"pause run: sim clock {tr.tot_step_time} against "
+           f"{plain.tot_step_time}")
+    return dict(paused_at=a["steps"], sim_time_s=a["sim_time_s"],
+                paused_s=out["paused_s"], steps=res.steps)
+
+
+def _capped_run(torch, root):
+    """Phase 12 (d): iters_per_step SERVE_CAP set through the viewer's
+    controls caps every bundle; the run takes its VIS_STEPS steps."""
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import load_config
+    from isdf_tpu_torch.vis.server import ViewerSource
+
+    tr = Trainer(load_config(CONFIG), seed=1)
+    _vis_pin(tr)
+    src = ViewerSource.from_trainer(tr, loop_attached=True)
+    src.update_controls({"iters_per_step": SERVE_CAP})
+    sizes, run = [], tr.run_steps
+
+    def spy(n):
+        sizes.append(n)
+        return run(n)
+
+    tr.run_steps = spy
+    os.makedirs(os.path.join(root, "capped"))
+    res = train_loop(tr, max_steps=VIS_STEPS, eval_hook=lambda t: {},
+                     save_path=os.path.join(root, "capped"),
+                     control_hook=src.get_controls)
+    expect(res.steps == sum(sizes) == VIS_STEPS and max(sizes) <= SERVE_CAP,
+           f"capped run: {res.steps} steps, bundles up to {max(sizes)}")
+    return dict(steps=res.steps, bundles=len(sizes), largest=max(sizes))
+
+
+def serve_phase(torch, root):
+    """Phase 12: the HTTP viewer and the query service beside the loop,
+    the live controls, and the capture stress run. Returns the
+    readings."""
+    t0 = time.perf_counter()
+    # a first plain run pays the process's warm-up (phase 11's reason)
+    cold, _, _ = _plain_vis_run(torch, root, "serve_cold")
+    del cold
+    out = {}
+    out["watched"], plain = _watched_run(torch, root)
+    out["pause"] = _pause_run(torch, root, plain)
+    del plain
+    out["capped"] = _capped_run(torch, root)
+    out["stress"] = capture_stress(torch)
+    for arena, r in out["stress"].items():
+        expect(r["loop_error"] is None and not r["planner_errors"],
+               f"capture stress [{arena}]: {r['loop_error']} "
+               f"{r['planner_errors']}")
+        expect(r["captures"] > 0
+               and r["captures_overlapped"] == r["captures"],
+               f"capture stress [{arena}]: {r['captures_overlapped']} of "
+               f"{r['captures']} captures overlap a query")
+        expect(r["same_bits"], f"capture stress [{arena}]: the bits differ "
+               "from the eager loop's")
+    out["phase_s"] = time.perf_counter() - t0
+    w, wl = out["watched"], out["watched"]["runs"][-1]
+    print(f"serve: {json.dumps(out)}", flush=True)
+    # the last run's: the first run's first planner request waits for the
+    # query service's JSON worker to start
+    print("serve: median ms per route (last watched run): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in wl["route_ms"].items())
+        + f"; refresh {w['refresh_s_grid200']:.3f} s at grid_dim 200; "
+        "planner M points/s while training " + ", ".join(
+            f"{r['planner_points_per_s'] / 1e6:.4f} "
+            f"({r['planner_requests']} requests)" for r in w["runs"])
+        + "; billed device ms/step {:.4f} with clients, {:.4f} without, "
+        "less captures {:.4f}, {:.4f} (medians of {}); watched runs ".format(
+            *w["medians"]["device_ms_per_step"],
+            *w["medians"]["steps_ms_per_step"], SERVE_REPS) + ", ".join(
+            f"{r['wall_s']:.1f}" for r in w["runs"]) + " s wall (plain loops "
+        + ", ".join(f"{p['wall_s']:.1f}" for p in w["plains"])
+        + f"); phase 12 {out['phase_s']:.1f} s wall", flush=True)
+    expect(out["phase_s"] < 120, f"phase 12: {out['phase_s']:.1f} s wall")
+    return out
+
+
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
     graphs_only = "--graphs-only" in sys.argv[1:]
     vis_only = "--vis-only" in sys.argv[1:]
+    serve_only = "--serve-only" in sys.argv[1:]
     t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2733,6 +3342,10 @@ def main():
     if vis_only:
         with tempfile.TemporaryDirectory() as work:
             vis_phase(torch, work)
+        return
+    if serve_only:
+        with tempfile.TemporaryDirectory() as work:
+            serve_phase(torch, work)
         return
 
     # ---- phase 2: kernels vs plain versions ----
@@ -2822,14 +3435,19 @@ def main():
     # ---- phase 11: train_vis, the live monitor and the renders ----
     with tempfile.TemporaryDirectory() as work:
         readings["vis"] = vis_phase(torch, work)
+    # ---- phase 12: the HTTP viewer, the live controls, captures beside
+    # planner threads ----
+    with tempfile.TemporaryDirectory() as work:
+        readings["serve"] = serve_phase(torch, work)
     readings["wall_s"] = time.perf_counter() - t_main
     print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; phase 10: "
           f"{readings['graphs']['wall_s']:.1f} s; phase 11: "
-          f"{readings['vis']['phase_s']:.1f} s; the script to here: "
+          f"{readings['vis']['phase_s']:.1f} s; phase 12: "
+          f"{readings['serve']['phase_s']:.1f} s; the script to here: "
           f"{readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 12: report ----
+    # ---- phase 13: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

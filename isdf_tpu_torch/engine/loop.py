@@ -21,6 +21,14 @@ Per round:
 After the last frame, a refinement tail of ``extra_opt_steps`` runs with
 the output noise off, the window drawn from all keyframes and the lr
 cosine-annealed to tail_lr_min; then a final eval of the settled model.
+
+``control_hook`` (isdf_tpu loop.py:50-58; the reference GUI's play/pause
+button and iters slider, isdf_window.py:546-712) is called between bundles
+on the loop's thread and returns the live controls: while ``paused`` the
+loop polls it every 0.05 s and runs no step (the sim clock stands still);
+``iters_per_step`` > 0 caps a bundle after tpu.steps_per_bundle. On the
+graph route a capped bundle replays the same captured step fewer times: a
+bundle's length is no part of a graph's key.
 """
 
 from __future__ import annotations
@@ -111,7 +119,9 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
                max_time_s: Optional[float] = None, bundle: bool = True,
                extra_opt_steps: int = 400, save_path: Optional[str] = None,
                eval_hook: Optional[Callable[[Trainer], Dict]] = None,
-               log_fn: Optional[Callable[[str], None]] = None) -> LoopResult:
+               log_fn: Optional[Callable[[str], None]] = None,
+               control_hook: Optional[Callable[[], Dict]] = None
+               ) -> LoopResult:
     cfg = trainer.cfg
     size_dataset = len(trainer.dataset)
     max_steps = max_steps if max_steps is not None else cfg.n_steps
@@ -132,6 +142,14 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
     while t < max_steps:
         if max_time_s is not None and trainer.tot_step_time > max_time_s:
             break
+        # ---- live controls (pause / iters-per-step) ----
+        iters_cap = 0
+        if control_hook is not None:
+            ctl = control_hook()
+            while ctl.get("paused"):
+                time.sleep(0.05)
+                ctl = control_hook()
+            iters_cap = int(ctl.get("iters_per_step") or 0)
         # ---- frame ingestion / keyframe bookkeeping ----
         finish_optim = trainer.steps_since_frame == trainer.optim_frames
         if trainer.incremental and (finish_optim or t == 0):
@@ -171,6 +189,8 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
                 1.0 + np.cos(np.pi * frac))
         if cfg.steps_per_bundle > 0:
             budget = min(budget, cfg.steps_per_bundle)
+        if iters_cap > 0:
+            budget = min(budget, iters_cap)
         n = min(budget if bundle else 1, max_steps - t)
         scalars = trainer.run_steps(n)
         losses_last = {k: float(v[-1]) for k, v in scalars.items()}

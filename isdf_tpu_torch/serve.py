@@ -18,6 +18,13 @@ turned into CHOMP or linear collision costs (reference metrics.py:95-113).
   (repeatable; '+' joins the members of an ensemble) runs on the card
   unless ``--device cpu``.
 
+A POST body is parsed, and an answer with arrays serialised, by the json
+module in a worker process of its own (``_codec``): a 65,536-point body
+is some 4 MB of JSON, and json holds the interpreter for its whole C call
+(100-300 ms), during which a training loop in this process (train_vis
+--serve-queries) could launch nothing. The bytes are the json module's,
+as in process.
+
 A query is cut into chunks of ``chunk_size`` points, run on the engine's
 device, gathered there and fetched once. The forward and its gradient are
 the eager ``apply`` / ``sdf_and_grad``, in the map's compute dtype (a
@@ -41,6 +48,7 @@ import torch
 from isdf_tpu_torch.eval.metrics import chomp_cost, linear_cost
 from isdf_tpu_torch.models import sdf_mlp as M
 from isdf_tpu_torch.utils.device import resolve_device
+from isdf_tpu_torch.utils.graphs import CAPTURE_LOCK
 
 # cap per request: 1M points (12 MB of float32 xyz); bigger batches stream
 # several requests
@@ -60,6 +68,37 @@ def _collision(sdf, margin: float) -> Dict[str, Any]:
             "argmin": int(sdf.argmin()) if sdf.size else -1,
             "n_below": int(below.sum()),
             "collides": bool(below.any())}
+
+
+_CODEC = []
+_CODEC_LOCK = threading.Lock()
+
+
+def _codec():
+    """The process-wide JSON worker, started at first use."""
+    with _CODEC_LOCK:
+        if not _CODEC:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+            _CODEC.append(ProcessPoolExecutor(
+                max_workers=1,
+                mp_context=multiprocessing.get_context("spawn")))
+        return _CODEC[0]
+
+
+def _decode(body: bytes):
+    """(the request without its points, the points as float32) of a POST
+    body; in the worker."""
+    req = json.loads(body or b"{}")
+    pts = np.asarray(req.get("points", []), np.float32)
+    req.pop("points", None)
+    return req, pts
+
+
+def _encode(obj: Dict[str, Any]) -> bytes:
+    """The JSON of an answer whose values may be arrays; in the worker."""
+    return json.dumps({k: v.tolist() if isinstance(v, np.ndarray) else v
+                       for k, v in obj.items()}).encode()
 
 
 @dataclass
@@ -150,18 +189,21 @@ class SDFQueryEngine:
             params, transform = self.params, self.transform
         if n == 0:
             return np.zeros((0, 3) if grad else (0,), np.float32)
-        x = torch.from_numpy(pts).to(self.device)
         K = self.chunk_size
-        out = []
-        for i in range(0, n, K):
-            if grad:
-                out.append(M.sdf_and_grad(params, x[i:i + K], self.model,
-                                          transform=transform)[1])
-            else:
-                with torch.no_grad():
-                    out.append(M.apply(params, x[i:i + K], self.model,
-                                       transform=transform))
-        return torch.cat(out).cpu().numpy()
+        # queries come from threads beside a training loop, whose graph
+        # captures another thread's device work would break (utils/graphs)
+        with CAPTURE_LOCK:
+            x = torch.from_numpy(pts).to(self.device)
+            out = []
+            for i in range(0, n, K):
+                if grad:
+                    out.append(M.sdf_and_grad(params, x[i:i + K], self.model,
+                                              transform=transform)[1])
+                else:
+                    with torch.no_grad():
+                        out.append(M.apply(params, x[i:i + K], self.model,
+                                           transform=transform))
+            return torch.cat(out).cpu().numpy()
 
     def sdf(self, pts) -> np.ndarray:
         """SDF values [N] (metres) at world points [N, 3]."""
@@ -226,8 +268,11 @@ class _QueryHandler(BaseHTTPRequestHandler):
     def log_message(self, *a):  # quiet
         pass
 
-    def _send(self, obj, code=200, close=False):
-        body = json.dumps(obj).encode()
+    def _send(self, obj, code=200, close=False, body=None):
+        """Answer obj as JSON; an answer with arrays comes in as ``body``,
+        serialised by the worker."""
+        if body is None:
+            body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         if close:
@@ -236,6 +281,9 @@ class _QueryHandler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _send_arrays(self, obj):
+        self._send(None, body=_codec().submit(_encode, obj).result())
 
     def _resolve(self):
         """(engine, route, error) of the request path: /scene/<name>/<route>
@@ -278,29 +326,27 @@ class _QueryHandler(BaseHTTPRequestHandler):
                 # reads the 413 and the keep-alive stream stays in step
                 return self._send({"error": "request too large"}, 413,
                                   close=True)
-            req = json.loads(self.rfile.read(n) or b"{}")
-            pts = np.asarray(req.get("points", []), np.float32)
+            req, pts = _codec().submit(_decode, self.rfile.read(n)).result()
             if pts.size == 0:
                 return self._send({"error": "no points"}, 400)
             e, p, err = self._resolve()
             if err:
                 return self._send(err, 404)
             if p == "/sdf":
-                return self._send({"sdf": e.sdf(pts).tolist()})
+                return self._send_arrays({"sdf": e.sdf(pts)})
             if p == "/grad":
-                return self._send({"grad": e.grad(pts).tolist()})
+                return self._send_arrays({"grad": e.grad(pts)})
             if p == "/collision":
                 return self._send(
                     e.collision(pts, margin=float(req.get("margin", 0.0))))
             if p == "/query":
                 sdf = e.sdf(pts)
-                out = {"sdf": sdf.tolist(),
+                out = {"sdf": sdf,
                        "chomp_cost": np.asarray(chomp_cost(
-                           sdf, epsilon=float(req.get("epsilon", 2.0)))
-                       ).tolist()}
+                           sdf, epsilon=float(req.get("epsilon", 2.0))))}
                 if req.get("grad", True):
-                    out["grad"] = e.grad(pts).tolist()
-                return self._send(out)
+                    out["grad"] = e.grad(pts)
+                return self._send_arrays(out)
             self._send({"error": "not found"}, 404)
         except BrokenPipeError:
             pass
@@ -326,6 +372,7 @@ class SDFQueryServer:
         self._thread: Optional[threading.Thread] = None
 
     def start(self):
+        _codec().submit(_decode, b"{}")   # the worker starts meanwhile
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         daemon=True)
         self._thread.start()

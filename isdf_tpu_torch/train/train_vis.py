@@ -4,8 +4,8 @@ isdf/train/train_vis.py):
 
     python -m isdf_tpu_torch.train.train_vis --config cfg.json \
         --save_path out/ [--monitor_every_s 2.0] [--max_steps N] \
-        [--max_time_s T] [--seed S] [--trace DIR] [--serve-queries PORT] \
-        [--set SECTION.KEY=VALUE] [--device cuda|cpu]
+        [--max_time_s T] [--seed S] [--trace DIR] [--serve PORT] \
+        [--serve-queries PORT] [--set SECTION.KEY=VALUE] [--device cuda|cpu]
 
 The reference drives an Open3D GUI; this entry point runs the training
 loop and, every ``--monitor_every_s`` seconds of simulated time, writes
@@ -17,8 +17,12 @@ turntable in monitor/final_mesh/. The monitor's seconds are billed to the
 no random number from the trainer's generators, so the training is the
 same with or without it. Runs on the CUDA device unless ``--device cpu``.
 ``--serve-queries`` serves the planner query API (serve.py), refreshed
-each monitor cycle. ``--serve`` (the interactive HTTP viewer) is not
-ported yet (ROADMAP A.3) and raises.
+each monitor cycle. ``--serve`` serves the interactive viewer
+(vis/server.py) beside the run: its controls pause the loop, cap its
+bundles and gate the monitor's parts ("do_mesh": the keyframe strip and
+latest render, "do_slices": the slices); its snapshot refreshes on the
+loop's thread, in a monitor cycle or while paused, only when a browser
+asked or looked since the last one.
 """
 
 from __future__ import annotations
@@ -29,12 +33,14 @@ import os
 import time
 
 
-def make_hook(mon_dir: str, every_s: float, qsrv=None, times=None):
+def make_hook(mon_dir: str, every_s: float, qsrv=None, times=None,
+              web=None):
     """The loop's eval hook: a monitor cycle whenever ``every_s`` seconds
     of simulated time have passed since the last. ``times``: a dict that
     gets the seconds of the cycles' parts (the keyframe strip and latest
-    render "latest", their PNG writes "write", the slices "slices") and
-    their count ("cycles")."""
+    render "latest", their PNG writes "write", the slices "slices", the
+    viewer's refreshes "refresh") and their count ("cycles"). ``web``: the
+    SDFWebViewer, whose controls gate the parts."""
     from isdf_tpu_torch.vis import slices as SL
     from isdf_tpu_torch.vis import viewer as V
 
@@ -47,12 +53,23 @@ def make_hook(mon_dir: str, every_s: float, qsrv=None, times=None):
             state["last"] = tr.tot_step_time
             tag = f"{state['i']:04d}_"
             state["i"] += 1
-            V.monitor(tr, mon_dir, tag=tag, times=times)
+            # the viewer's content toggles (reference isdf_window.py's mesh
+            # and slices checkboxes) skip the work itself
+            ctl = (web.source.get_controls() if web is not None
+                   else {"do_mesh": True, "do_slices": True})
+            if ctl["do_mesh"]:
+                V.monitor(tr, mon_dir, tag=tag, times=times)
             t1 = time.perf_counter()
-            SL.write_slices(tr, mon_dir, prefix=tag, n_slices=2,
-                            include_gt=tr.gt_sdf_fn is not None)
+            if ctl["do_slices"]:
+                SL.write_slices(tr, mon_dir, prefix=tag, n_slices=2,
+                                include_gt=tr.gt_sdf_fn is not None)
             times["slices"] = times.get("slices", 0.0) + (
                 time.perf_counter() - t1)
+            if web is not None:
+                t1 = time.perf_counter()
+                web.source.refresh_if_watched()
+                times["refresh"] = times.get("refresh", 0.0) + (
+                    time.perf_counter() - t1)
             if qsrv is not None:
                 qsrv.engine.refresh_from_trainer(tr)
             times["cycles"] = times.get("cycles", 0) + 1
@@ -76,7 +93,9 @@ def main(argv=None):
     ap.add_argument("--trace", type=str, default=None,
                     help="write a torch.profiler trace to this directory")
     ap.add_argument("--serve", type=int, default=None, metavar="PORT",
-                    help="the interactive viewer (not ported yet: raises)")
+                    help="also serve the interactive viewer "
+                         "(vis/server.py) on this port; the SDF "
+                         "snapshot refreshes each monitor cycle")
     ap.add_argument("--serve-queries", type=int, default=None,
                     metavar="PORT",
                     help="also serve the planner query API (serve.py: "
@@ -89,11 +108,6 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.serve is not None:
-        raise NotImplementedError(
-            "--serve: the interactive HTTP viewer (isdf_tpu vis/server.py) "
-            "and the loop's live controls are not ported yet (ROADMAP "
-            "A.3, second half); --serve-queries serves the SDF query API")
 
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
@@ -106,25 +120,41 @@ def main(argv=None):
     mon_dir = os.path.join(args.save_path, "monitor")
     os.makedirs(mon_dir, exist_ok=True)
 
-    qsrv = None
-    if args.serve_queries is not None:
-        from isdf_tpu_torch.serve import SDFQueryEngine, SDFQueryServer
-        qsrv = SDFQueryServer(SDFQueryEngine.from_trainer(trainer),
-                              port=args.serve_queries).start()
-        print(f"query API: http://127.0.0.1:{qsrv.port}", flush=True)
-
-    hook = make_hook(mon_dir, args.monitor_every_s, qsrv)
-    ctx = (device_trace(args.trace) if args.trace
-           else contextlib.nullcontext())
+    web = qsrv = control_hook = None
     try:
+        if args.serve is not None:
+            from isdf_tpu_torch.vis.server import SDFWebViewer, ViewerSource
+            web = SDFWebViewer(
+                ViewerSource.from_trainer(trainer, loop_attached=True),
+                port=args.serve).start()
+            print(f"interactive viewer: http://127.0.0.1:{web.port}",
+                  flush=True)
+
+            def control_hook():
+                c = web.source.get_controls()
+                if c.get("paused"):
+                    # paused, the loop's thread is free to refresh
+                    web.source.refresh_if_watched()
+                return c
+        if args.serve_queries is not None:
+            from isdf_tpu_torch.serve import SDFQueryEngine, SDFQueryServer
+            qsrv = SDFQueryServer(SDFQueryEngine.from_trainer(trainer),
+                                  port=args.serve_queries).start()
+            print(f"query API: http://127.0.0.1:{qsrv.port}", flush=True)
+
+        hook = make_hook(mon_dir, args.monitor_every_s, qsrv, web=web)
+        ctx = (device_trace(args.trace) if args.trace
+               else contextlib.nullcontext())
         with ctx:
             res = train_loop(trainer, max_steps=args.max_steps,
                              max_time_s=args.max_time_s,
                              save_path=args.save_path, eval_hook=hook,
+                             control_hook=control_hook,
                              log_fn=lambda m: print(m, flush=True))
     finally:
-        if qsrv is not None:
-            qsrv.stop()
+        for srv in (web, qsrv):
+            if srv is not None:
+                srv.stop()
     bal = trainer.perf_summary()
     print("compute balance (20s window): " + ", ".join(
         f"{k}={v:.2f}" for k, v in bal.items()), flush=True)

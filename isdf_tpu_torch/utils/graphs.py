@@ -17,15 +17,30 @@ replay gives the eager call's draws.
 A failed capture raises; nothing carries on eagerly in its place. The
 caller keeps a captured function's inputs at fixed addresses: a graph
 reads and writes the tensors it was captured with.
+
+A capture begins in CUDA's global mode, in which a call such as
+``cudaMalloc`` or a synchronising copy from any thread of the process
+invalidates it (a planner's query from an HTTP thread did, on the card:
+``cudaErrorStreamCaptureInvalidated`` in the loop, ``...Unsupported`` in
+the query). So ``capture`` holds ``CAPTURE_LOCK`` from its begin to its
+end, and device work on a thread other than the loop's takes it around
+its launches and copies (serve.py's queries, vis/server.py's handlers
+over a trainer that no loop runs). Nothing else holds it: the loop's
+bundles and the handlers' host work run beside each other.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
 
 from isdf_tpu_torch.utils import nvcc
+
+# process-wide, as CUDA's global capture mode is; re-entrant, so device
+# work that calls other locked work does not wait on itself
+CAPTURE_LOCK = threading.RLock()
 
 
 def captured_on(tensors, transform):
@@ -66,7 +81,9 @@ class GraphRunner:
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
-        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
+        # intervals: (capture_begin, capture_end) on time.perf_counter()
+        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
+                      "intervals": []}
 
     def warm(self, fn):
         """fn() eagerly on the side stream, ordered after the current
@@ -88,7 +105,9 @@ class GraphRunner:
             graph.register_generator_state(gen)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream), nvcc.capture_tally() as tally:
+        with CAPTURE_LOCK, torch.cuda.stream(self.stream), \
+                nvcc.capture_tally() as tally:
+            tb = time.perf_counter()
             graph.capture_begin(pool=self.pool)
             try:
                 fn()
@@ -99,7 +118,9 @@ class GraphRunner:
                     pass
                 raise
             graph.capture_end()
+            te = time.perf_counter()
         cur.wait_stream(self.stream)
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
+        self.stats["intervals"].append((tb, te))
         return Captured(graph, list(tally), self)

@@ -938,41 +938,84 @@ def write_jpeg(path: str, img: np.ndarray) -> None:
 # ---------------------------------------------------------------------------
 
 def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
-    """[n_dst, n_src] weights of cv2's INTER_AREA along one axis: the
-    overlap of each output cell with the source pixels when shrinking;
-    when growing, cv2's INTER_AREA interpolation (a linear blend whose
-    fraction is zero wherever an output cell lies inside one source
-    pixel, so integer factors replicate pixels)."""
+    """[n_dst, n_src] weights of cv2's true area path along one axis that
+    does not grow: the overlap of each output cell with the source pixels
+    over the cell's width (the identity where n_dst == n_src)."""
     m = np.zeros((n_dst, n_src))
     scale = n_src / n_dst
-    if n_dst < n_src:
-        for i in range(n_dst):
-            a, b = i * scale, (i + 1) * scale
-            for j in range(int(np.floor(a)), min(int(np.ceil(b)), n_src)):
-                m[i, j] = (min(b, j + 1) - max(a, j)) / scale
-        return m
-    inv = n_dst / n_src
     for i in range(n_dst):
-        sx = int(np.floor(i * scale))
-        fx = (i + 1) - (sx + 1) * inv
-        fx = 0.0 if fx <= 0 else fx - np.floor(fx)
-        if sx >= n_src - 1:
-            sx, fx = n_src - 1, 0.0
-        m[i, sx] += 1.0 - fx
-        if fx:
-            m[i, sx + 1] += fx
+        a, b = i * scale, (i + 1) * scale
+        for j in range(int(np.floor(a)), min(int(np.ceil(b)), n_src)):
+            m[i, j] = (min(b, j + 1) - max(a, j)) / scale
     return m
 
 
+def _linear_tab(n_src: int, n_dst: int, last: bool):
+    """cv2's INTER_AREA coefficients along one axis where either axis
+    grows (resize.cpp, the ``area_mode`` branch of the linear path):
+    source index sx = floor(dx * scale) with scale = 1 / (n_dst / n_src)
+    in double, as cv2 computes it, and the fraction fx = (dx + 1) - (sx +
+    1) * inv_scale rounded to float, 0 where not positive, else fx -
+    floor(fx). ``last``: an index past the last pixel takes it with
+    fraction 0 (cv2's columns); else the fraction stays and the second
+    row clamps (cv2's rows). Returns (first, second index, fraction)."""
+    inv = n_dst / n_src
+    i = np.arange(n_dst)
+    sx = np.floor(i * (1.0 / inv)).astype(np.int64)
+    fx = ((i + 1) - (sx + 1) * inv).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx))
+    if last:
+        edge = sx >= n_src - 1
+        sx, fx = np.where(edge, n_src - 1, sx), np.where(edge, 0, fx)
+    return sx, np.minimum(sx + 1, n_src - 1), fx.astype(np.float32)
+
+
+def _resize_linear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """cv2's INTER_AREA where an axis grows: the same interpolating
+    coefficients on both axes, the shrinking one included. uint8 in cv2's
+    11-bit fixed point (rows as int sums of 11-bit coefficients, columns
+    by its vector rounding: each product of a row >> 4 with an 11-bit
+    coefficient >> 16, the sum rounded >> 2); other types in float32
+    (float64 kept), integers rounded half to even and saturated."""
+    H, W = img.shape[:2]
+    x0, x1, fx = _linear_tab(W, w, True)
+    y0, y1, fy = _linear_tab(H, h, False)
+    cx = (slice(None),) + (None,) * (img.ndim - 2)
+    cy = (slice(None),) + (None,) * (img.ndim - 1)
+    if img.dtype == np.uint8:
+        def fixed(f):
+            one = np.float32(2048)
+            return (np.rint((np.float32(1) - f) * one).astype(np.int64),
+                    np.rint(f * one).astype(np.int64))
+        (a0, a1), (b0, b1) = fixed(fx), fixed(fy)
+        s = img.astype(np.int64)
+        rows = s[:, x0] * a0[cx] + s[:, x1] * a1[cx]
+        out = ((((rows[y0] >> 4) * b0[cy]) >> 16)
+               + (((rows[y1] >> 4) * b1[cy]) >> 16) + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    ft = np.float64 if img.dtype == np.float64 else np.float32
+    fx, fy = fx.astype(ft), fy.astype(ft)
+    s = img.astype(ft)
+    rows = s[:, x0] * (1 - fx)[cx] + s[:, x1] * fx[cx]
+    out = rows[y0] * (1 - fy)[cy] + rows[y1] * fy[cy]
+    if np.issubdtype(img.dtype, np.integer):
+        info = np.iinfo(img.dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(img.dtype)
+    return out.astype(img.dtype)
+
+
 def resize_area(img: np.ndarray, size_wh) -> np.ndarray:
-    """cv2.resize(img, size_wh, interpolation=cv2.INTER_AREA): exact for
-    integer factors (replication when growing, block means when
-    shrinking, 2x2 rounding half up as cv2 does), separable area weights
-    otherwise."""
+    """cv2.resize(img, size_wh, interpolation=cv2.INTER_AREA). Where
+    neither axis grows, cv2's area path: integer factors as block means
+    (2x2 rounding half up, as cv2 does), other shrinks by separable area
+    weights. Where either axis grows, its interpolating coefficients on
+    both axes (_resize_linear)."""
     w, h = int(size_wh[0]), int(size_wh[1])
     H, W = img.shape[:2]
     if (W, H) == (w, h):
         return img
+    if w > W or h > H:
+        return _resize_linear(img, w, h)
     if W % w == 0 and H % h == 0 and np.issubdtype(img.dtype, np.integer):
         kx, ky = W // w, H // h
         s = img.astype(np.int64).reshape(h, ky, w, kx, *img.shape[2:]).sum(

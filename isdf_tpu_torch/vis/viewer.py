@@ -12,8 +12,9 @@ isdf/visualisation/sdf_viewer.py, isdf_window.py).
   compute-balance text, as train_vis writes it.
 
 ``show()`` opens a matplotlib window in isdf_tpu. The card host has no
-display and the port no matplotlib, so it raises here; the interactive
-view is the HTTP viewer still to be ported (ROADMAP A.3, second half).
+display and the port no matplotlib, so here it serves the viewer's own
+images through the HTTP viewer (vis/server.py) on a port; the page's
+slider and arrow keys scrub as matplotlib's scroll and keys did.
 """
 
 from __future__ import annotations
@@ -26,8 +27,18 @@ from isdf_tpu_torch.utils import image_io as IO
 from isdf_tpu_torch.vis import raster as RS
 from isdf_tpu_torch.vis.slices import sdf_colormap
 
-_NO_SHOW = ("show() needs a display and matplotlib; use save() (the HTTP "
-            "viewer, vis/server.py, is still to be ported: ROADMAP A.3)")
+
+
+def _serve(source, port: int, block: bool):
+    """Serve a vis/server.py source: until ctrl-c with ``block``, else
+    return the started SDFWebViewer (the caller stops it)."""
+    from isdf_tpu_torch.vis.server import SDFWebViewer
+    web = SDFWebViewer(source, port=port)
+    if block:
+        web.serve_until_interrupted()
+        return None
+    print(f"serving on http://127.0.0.1:{web.port}", flush=True)
+    return web.start()
 
 
 class SDFSliceViewer:
@@ -52,8 +63,14 @@ class SDFSliceViewer:
             IO.imwrite(os.path.join(out_dir, f"slice_{i:04d}.png"),
                        self._slice_img(i)[..., ::-1])
 
-    def show(self):
-        raise NotImplementedError(_NO_SHOW)
+    def show(self, port: int = 8787, block: bool = True):
+        """Serve the slices over HTTP (vis/server.py) with the grid's
+        up_ix and this viewer's sdf_range; slice i is _slice_img(i)
+        repeated 3-fold. ``block=False`` returns the started server."""
+        from isdf_tpu_torch.vis.server import ViewerSource
+        src = ViewerSource.from_grid(self.grid, up_ix=self.up_ix)
+        src.sdf_range = tuple(self.sdf_range)
+        return _serve(src, port, block)
 
 
 class SDFPointcloudViewer:
@@ -97,8 +114,12 @@ class SDFPointcloudViewer:
             IO.imwrite(os.path.join(out_dir, f"slab_{i:04d}.png"),
                        self._slab_img(i)[..., ::-1])
 
-    def show(self):
-        raise NotImplementedError(_NO_SHOW)
+    def show(self, port: int = 8787, block: bool = True):
+        """Serve the slabs over HTTP (vis/server.py::SlabSource): slice i
+        is _slab_img(i), a query reports slab i's z. ``block=False``
+        returns the started server."""
+        from isdf_tpu_torch.vis.server import SlabSource
+        return _serve(SlabSource(self), port, block)
 
 
 def mesh_shades(tri: np.ndarray, ambient: float = 0.3) -> np.ndarray:

@@ -254,6 +254,7 @@ PORT_MODULES = [
     "isdf_tpu_torch.vis.raster", "isdf_tpu_torch.vis.views",
     "isdf_tpu_torch.vis.viewer", "isdf_tpu_torch.vis.composite",
     "isdf_tpu_torch.vis.display", "isdf_tpu_torch.train.train_vis",
+    "isdf_tpu_torch.vis.server",
 ]
 
 

@@ -6,7 +6,9 @@ train/train_vis.py) against isdf_tpu's on the CPU.
   1e-5 and the depth and normals quadrants within one level.
 * SDFPointcloudViewer's slabs, save_level_sets' limits, points and
   colours, save_traj_seq's camera angles: equal to isdf_tpu's.
-* train_vis on the CPU writes isdf_tpu's file names; --serve raises.
+* train_vis on the CPU writes isdf_tpu's file names; with --serve it
+  serves the viewer while it runs, and the viewer's pause freezes its
+  steps and sim clock.
 * The monitor leaves the training bit for bit as it was: the parameters
   after train_vis equal those of the same run under train_loop with a
   hook that draws nothing.
@@ -162,10 +164,15 @@ def test_pointcloud_viewer_slabs_equal_isdf_tpus(tmp_path, monkeypatch):
     v.save(str(tmp_path), stride=2)
     assert sorted(os.listdir(tmp_path)) == [f"slab_{i:04d}.png"
                                             for i in (0, 2, 4)]
-    with pytest.raises(NotImplementedError, match="save"):
-        v.show()
-    with pytest.raises(NotImplementedError, match="save"):
-        TV.SDFSliceViewer(np.zeros((4, 4, 4))).show()
+    # show() serves the viewer's own images over HTTP (vis/server.py)
+    import json
+    for viewer, n in ((v, 5), (TV.SDFSliceViewer(np.zeros((4, 4, 4))), 4)):
+        web = viewer.show(port=0, block=False)
+        try:
+            assert json.loads(_http(web.port, "/api/meta")[1])[
+                "n_slices"] == n
+        finally:
+            web.stop()
 
 
 def _recorder(mod, name, monkeypatch, out):
@@ -295,9 +302,78 @@ def test_train_vis_writes_isdf_tpus_files(tmp_path, monkeypatch):
     for name in mine:
         if name.endswith(".png"):
             assert IO.imread(str(tmp_path / "t" / name)).size > 0
-    with pytest.raises(NotImplementedError, match="A.3"):
-        TTV.main(_args("isdf_tpu_torch", tmp_path / "s", "--device", "cpu",
-                       "--serve", "8123"))
+
+
+def _http(port, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def test_train_vis_serves_while_it_runs(tmp_path, monkeypatch):
+    """train_vis --serve: the viewer answers during the run (status, a
+    slice), a pause over HTTP freezes the steps and the sim clock, the run
+    resumes and finishes, and the monitor writes its files as without
+    the viewer."""
+    import functools
+    import json
+    import threading
+    import time
+
+    import isdf_tpu_torch.engine.loop as TL
+    import isdf_tpu_torch.engine.trainer as TT
+    from isdf_tpu_torch.train import train_vis as TTV
+    from isdf_tpu_torch.vis import server as TSV
+
+    _pin(monkeypatch, TL, 16)
+    # the viewer snapshots the grid before the loop starts: a small one
+    monkeypatch.setattr(TT, "Trainer", functools.partial(TT.Trainer,
+                                                         grid_dim=16))
+    webs, start = [], TSV.SDFWebViewer.start
+
+    def record(self):
+        webs.append(self)
+        return start(self)
+
+    monkeypatch.setattr(TSV.SDFWebViewer, "start", record)
+    out = {}
+    th = threading.Thread(target=lambda: out.update(res=TTV.main(_args(
+        "isdf_tpu_torch", tmp_path / "s", "--device", "cpu", "--serve", "0",
+        steps=200))), daemon=True)
+    th.start()
+    t0 = time.time()
+    while not webs and time.time() - t0 < 120:
+        time.sleep(0.01)
+    (web,) = webs
+    port = web.port
+    status = {}
+    while time.time() - t0 < 120:
+        status = json.loads(_http(port, "/api/status")[1])
+        if status["steps"] > 0:
+            break
+        time.sleep(0.01)
+    code, body = _http(port, "/api/slice/8.png")
+    assert code == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
+    assert status["live"] is True and 0 < status["steps"] < 200
+    _http(port, "/api/control", json.dumps({"paused": True}).encode())
+    time.sleep(1.0)   # the loop reaches its control hook
+    a = json.loads(_http(port, "/api/status")[1])
+    time.sleep(0.5)
+    b = json.loads(_http(port, "/api/status")[1])
+    assert a["paused"] is True and a["steps"] < 200
+    assert (a["steps"], a["sim_time_s"]) == (b["steps"], b["sim_time_s"])
+    _http(port, "/api/control", json.dumps({"paused": False}).encode())
+    th.join(timeout=600)
+    assert not th.is_alive() and out["res"].steps == 200
+    names = _names(tmp_path / "s")
+    n = sum(x.endswith("_latest.png") for x in names)
+    assert n >= 2
+    assert set(names) >= {f"monitor/{i:04d}_{k}.png" for i in range(n)
+                          for k in ("keyframes", "latest", "pred_0",
+                                    "pred_1")}
+    assert "monitor/final_mesh/view_07.png" in names
 
 
 def test_monitor_leaves_the_training_bits(tmp_path, monkeypatch):

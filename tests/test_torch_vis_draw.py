@@ -322,16 +322,34 @@ def test_render_is_deterministic_and_raises_without_the_library(
 # ---------------------------------------------------------------- display
 
 
+# cv2.resize(..., INTER_AREA) within 1 level for the integer types and
+# 1e-4 for float32 (utils/image_io.py::resize_area): the display's tile
+# shapes, then shapes where an axis grows (cv2 interpolates on both axes
+# there, the shrinking one included)
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
 @pytest.mark.parametrize("src,wh", [((320, 320), (320, 240)),
                                     ((240, 240), (200, 240)),
                                     ((256, 256), (256, 192)),
-                                    ((480, 640), (320, 240))])
-def test_area_resize_on_display_tiles(src, wh):
-    a = np.random.default_rng(sum(src)).integers(0, 256, src + (3,),
-                                                 dtype=np.uint8)
-    d = np.abs(IO.resize_area(a, wh).astype(int)
-               - cv2.resize(a, wh, interpolation=cv2.INTER_AREA))
-    assert d.max() <= 1
+                                    ((480, 640), (320, 240)),
+                                    ((170, 300), (320, 240)),
+                                    ((100, 100), (130, 90)),
+                                    ((100, 100), (150, 150)),
+                                    ((100, 100), (150, 100)),
+                                    ((100, 100), (100, 150)),
+                                    ((60, 80), (100, 70)),
+                                    ((170, 300), (300, 170))])
+def test_area_resize_on_display_tiles(src, wh, dtype):
+    rng = np.random.default_rng(sum(src))
+    if dtype == np.float32:
+        a = rng.random(src + (3,), dtype=np.float32)
+    else:
+        a = rng.integers(0, np.iinfo(dtype).max + 1, src + (3,),
+                         dtype=dtype)
+    out = IO.resize_area(a, wh)
+    want = cv2.resize(a, wh, interpolation=cv2.INTER_AREA)
+    assert out.dtype == want.dtype and out.shape == want.shape
+    d = np.abs(out.astype(np.float64) - want)
+    assert d.max() <= (1e-4 if dtype == np.float32 else 1)
 
 
 def test_compose_tiles_and_display_scenes_equal_isdf_tpus(tmp_path):

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --graphs-only    # build, then phase 10 only
     python3 chip_smoke.py --vis-only       # build, then phase 11 only
     python3 chip_smoke.py --serve-only     # build, then phase 12 only
+    python3 chip_smoke.py --plots-only     # build, then phase 13 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
   1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
@@ -170,7 +171,22 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      the bills and walls with and without clients, and the phase's wall
      (under 120 s); --serve-only runs it alone after the
      build;
- 13. print the card, the kernels' JSON line, and the result line.
+ 13. the 2-D plot kit (vis/plot.py, host C++ csrc/plot2d.cpp), the three
+     figures of eval/figs.py and the debug oracles: the shipped
+     synthetic.json at full width on the graph route for 300 steps
+     (K1-pc once a step and nothing else; res.json with its timed
+     evals); ray_oracle and check_gt_sdf on the card, their curves held
+     to the same functions on CPU copies of the same draws (atol 1e-5,
+     pred through the same sdf_fn); check_gt_sdf's and ray_oracle's
+     figures, vis_embedding (bands, and a random-Fourier matrix on the
+     card), plot_per_seq on the run with the dataset's thumbnails, and
+     plot_all_seq and plot_fig8 on run directories the phase writes in
+     isdf_tpu's layout from the run's entries (fig8's stats checked);
+     every PNG read back through utils/image_io.py, its size and that it
+     is not blank checked; it prints the seconds per figure, the oracles'
+     gaps, the billed device ms/step and the phase's wall (under 90 s);
+     --plots-only runs it alone after the build;
+ 14. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
@@ -3305,11 +3321,212 @@ def serve_phase(torch, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the 2-D plot kit, the three figures and the debug oracles
+# ---------------------------------------------------------------------------
+
+PLOTS_STEPS = 300
+PLOTS_DT = 0.01          # 3 s of sim time: three timed evals in res.json
+TOL_ORACLE = 1e-5        # the oracles' curves, card against CPU copies
+
+
+def _cpu_twin(trainer):
+    """The trainer's arena, camera rays, config and oracles with the
+    arena and rays copied to the host: the oracles then sample and bound
+    on the CPU and query the same sdf_fn on the card."""
+    import types
+    buf = trainer.buffer
+    cpu_buf = types.SimpleNamespace(
+        depth=buf.depth.cpu(), T_WC=buf.T_WC.cpu(), count=buf.count,
+        normals=None if buf.normals is None else buf.normals.cpu())
+    return types.SimpleNamespace(
+        buffer=cpu_buf, cfg=trainer.cfg, dirs_C=trainer.dirs_C.cpu(),
+        H=trainer.H, W=trainer.W, sdf_fn=trainer.sdf_fn,
+        gt_sdf_fn=trainer.gt_sdf_fn)
+
+
+def _draws(torch, trainer, T, seed):
+    """Pixel and sample draws for T rays, made on the card."""
+    g = torch.Generator(device=trainer.device).manual_seed(seed)
+    cfg, dev = trainer.cfg, trainer.device
+    return (torch.randint(0, trainer.H, (T,), generator=g, device=dev),
+            torch.randint(0, trainer.W, (T,), generator=g, device=dev),
+            torch.rand((T, cfg.n_strat_samples), generator=g, device=dev),
+            torch.randn((T, cfg.n_surf_samples - 1), generator=g,
+                        device=dev))
+
+
+def _write_exp0(root, res, seqs, repeats):
+    """<root>/<seq>_<i>/vox_res.json in isdf_tpu's (the reference's exp0)
+    layout from this run's timed entries: av_l1 and the CHOMP costs of
+    each entry, scaled per repeat, both regions; seeded cosine
+    distances."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    entries = [e for e in res["sdf_eval"].values() if "rays" in e]
+    for k, seq in enumerate(seqs):
+        for i in range(repeats):
+            d = os.path.join(root, f"{seq}_{i}")
+            os.makedirs(d)
+            out = {}
+            for e in entries:
+                s = (1.0 + 0.1 * i) * (1.0 + 0.2 * k)
+                region = {"av_l1": s * e["rays"]["av_l1"],
+                          "l1_chomp_costs": [s * c for c in
+                                             e["rays"]["l1_chomp_costs"]],
+                          "av_cossim": rng.random(3).tolist()}
+                out[f"{e['time']:.3f}"] = {"time": e["time"], "rays": {
+                    "vis": region, "vox": dict(region)}}
+            with open(os.path.join(d, "vox_res.json"), "w") as f:
+                json.dump(out, f)
+
+
+def _px(w_in, h_in, dpi):
+    """The canvas matplotlib makes of a figure: (int(h dpi), int(w dpi))."""
+    return int(h_in * dpi), int(w_in * dpi)
+
+
+def _read_png(path, shape=None):
+    """Decode a figure with the port's codec; its size and that it is
+    not blank."""
+    import numpy as np
+
+    from isdf_tpu_torch.utils import image_io as IO
+    img = IO.imread(path)
+    if shape is not None:
+        expect(img.shape[:2] == shape, f"{path}: {img.shape} not {shape}")
+    ink = (img != 255).any(-1).mean()
+    expect(0.01 < ink < 0.9 and len(np.unique(img.reshape(-1, 3), axis=0))
+           > 8, f"{path}: blank ({ink:.4f} of the pixels drawn)")
+    return img
+
+
+def plots_phase(torch, root):
+    """Phase 13: the shipped synthetic.json at full width on the graph
+    route (K1-pc) for PLOTS_STEPS steps, then the debug oracles on the
+    card held to CPU copies of the same draws and the five figures drawn
+    by the port's plot kit, each read back."""
+    import numpy as np
+
+    from isdf_tpu_torch.engine.loop import train_loop
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.eval import debug as D
+    from isdf_tpu_torch.eval import figs
+    from isdf_tpu_torch.utils.config import load_config
+    from isdf_tpu_torch.vis import debug as VD
+
+    t_phase = time.perf_counter()
+    trainer = Trainer(load_config(CONFIG), seed=1)
+    assert trainer.device.type == "cuda"
+    trainer._per_step_device_s, trainer._bill_exact = PLOTS_DT, True
+    run_dir = os.path.join(root, "run")
+    os.makedirs(run_dir)
+    reset_launches()
+    res = train_loop(trainer, max_steps=PLOTS_STEPS, save_path=run_dir)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    expect(launches["K1-pc"] == res.steps == PLOTS_STEPS and all(
+        v == 0 for k, v in launches.items() if k != "K1-pc"),
+        f"plots: launches {launches} in {res.steps} steps")
+    billed = 1e3 * trainer.measured_s / res.steps
+    stats = getattr(trainer.fns.graphs, "stats", None) or {}
+    cap_s = stats.get("capture_s", 0.0)
+    with open(os.path.join(run_dir, "res.json")) as f:
+        saved = json.load(f)
+    expect(len(saved["sdf_eval"]) >= 2, "plots: res.json has no evals")
+
+    out = {"steps": res.steps, "billed_device_ms_per_step": billed,
+           "captures": stats.get("captures", 0), "capture_s": cap_s,
+           "keyframes": len(res.kf_indices), "figure_s": {}}
+    twin = _cpu_twin(trainer)
+
+    # ray_oracle: sampling, bounds and sdf_fn on the card; the same draws
+    # on CPU copies
+    t0 = time.perf_counter()
+    n_rays = 3
+    d = _draws(torch, trainer, max(4 * n_rays, 64), 5)
+    rays = D.ray_oracle(trainer, n_rays=n_rays, draws=d)
+    rays_cpu = D.ray_oracle(twin, n_rays=n_rays,
+                            draws=tuple(x.cpu() for x in d))
+    err = max(float(np.abs(a[k] - b[k]).max()) for a, b in
+              zip(rays, rays_cpu) for k in ("z", "ray", "normal", "pc",
+                                            "gt"))
+    pred_err = max(float(np.abs(a["pred"] - b["pred"]).max())
+                   for a, b in zip(rays, rays_cpu))
+    expect(len(rays) == n_rays and err <= TOL_ORACLE,
+           f"ray_oracle: card against CPU {err:.3g}")
+    expect(pred_err <= TOL_ORACLE, f"ray_oracle: pred {pred_err:.3g}")
+    expect(all(np.isfinite(r[k]).all() for r in rays for k in r),
+           "ray_oracle: non-finite curves")
+    out["oracle_s"] = time.perf_counter() - t0
+    out["ray_oracle_max_err"], out["ray_oracle_pred_err"] = err, pred_err
+
+    # check_gt_sdf: the same, then its figure from its own generator
+    t0 = time.perf_counter()
+    d = _draws(torch, trainer, 100, 6)
+    rows = VD.check_gt_sdf(trainer, draws=d)
+    rows_cpu = VD.check_gt_sdf(twin, draws=tuple(x.cpu() for x in d))
+    err = max(float(np.abs(rows[i][k] - rows_cpu[i][k]).max())
+              for i in rows for k in ("z", "gt_sdf", "ray", "pc", "normal")
+              if rows[i][k] is not None)
+    expect(list(rows) == [9, 19, 23] and err <= TOL_ORACLE,
+           f"check_gt_sdf: card against CPU {err:.3g}")
+    out["check_gt_sdf_max_err"] = err
+    out["check_s"] = time.perf_counter() - t0
+
+    def timed(name, fn, shape=None):
+        t = time.perf_counter()
+        path = fn(os.path.join(root, name + ".png"))
+        out["figure_s"][name] = time.perf_counter() - t
+        _read_png(path, shape)
+
+    timed("check_gt_sdf", lambda p: VD.check_gt_sdf(trainer, out_file=p),
+          _px(11, 3.3 * 3, 120))
+    timed("ray_oracle_figure",
+          lambda p: D.ray_oracle_figure(trainer, p, rays=rays))
+    timed("vis_embedding", lambda p: D.vis_embedding(p), _px(8, 3.2, 110))
+    B = torch.randn((3, 16), device=trainer.device) * 4
+    timed("vis_embedding_gauss", lambda p: D.vis_embedding(p, B=B),
+          _px(8, 3.2, 110))
+    timed("plot_per_seq", lambda p: figs.plot_per_seq(
+        run_dir, p, dataset=trainer.dataset), _px(16, 9, 120))
+    exp0 = os.path.join(root, "exp0")
+    seqs = ["apt_2_nav", "apt_3_obj", "scene0010_00"]
+    _write_exp0(exp0, saved, seqs, 3)
+    timed("plot_all_seq", lambda p: figs.plot_all_seq(exp0, p),
+          _px(5 * 3, 3.5, 120))
+    stats = {}
+
+    def fig8(p):
+        stats.update(figs.plot_fig8(exp0, p, seq_rows=[
+            seqs[:2], [seqs[2], "scene0031_00"]]))
+        return p
+    timed("plot_fig8", fig8, _px(4.3 * 2, 3.2 * 6, 110))
+    expect(sorted(stats) == sorted(seqs) and all(
+        s["sdf"][3] == 3 for s in stats.values()), f"plot_fig8: {stats}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print("plots: " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                               out["figure_s"].items())
+          + f"; oracles {out['oracle_s']:.2f} s, check_gt_sdf "
+          f"{out['check_s']:.2f} s (card against CPU: ray_oracle "
+          f"{out['ray_oracle_max_err']:.3g}, pred "
+          f"{out['ray_oracle_pred_err']:.3g}, check_gt_sdf "
+          f"{out['check_gt_sdf_max_err']:.3g}); {res.steps} steps, "
+          f"{out['keyframes']} keyframes, billed device ms/step "
+          f"{billed:.4f} ({out['captures']} captures, {cap_s:.4f} s; less "
+          f"captures {billed - 1e3 * cap_s / res.steps:.4f}); launches "
+          f"{launches}; phase 13 "
+          f"{out['phase_s']:.1f} s wall", flush=True)
+    expect(out["phase_s"] < 90, f"phase 13: {out['phase_s']:.1f} s wall")
+    return out
+
+
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
     graphs_only = "--graphs-only" in sys.argv[1:]
     vis_only = "--vis-only" in sys.argv[1:]
     serve_only = "--serve-only" in sys.argv[1:]
+    plots_only = "--plots-only" in sys.argv[1:]
     t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -3346,6 +3563,10 @@ def main():
     if serve_only:
         with tempfile.TemporaryDirectory() as work:
             serve_phase(torch, work)
+        return
+    if plots_only:
+        with tempfile.TemporaryDirectory() as work:
+            plots_phase(torch, work)
         return
 
     # ---- phase 2: kernels vs plain versions ----
@@ -3439,15 +3660,19 @@ def main():
     # planner threads ----
     with tempfile.TemporaryDirectory() as work:
         readings["serve"] = serve_phase(torch, work)
+    # ---- phase 13: the plot kit, the figures and the debug oracles ----
+    with tempfile.TemporaryDirectory() as work:
+        readings["plots"] = plots_phase(torch, work)
     readings["wall_s"] = time.perf_counter() - t_main
     print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; phase 10: "
           f"{readings['graphs']['wall_s']:.1f} s; phase 11: "
           f"{readings['vis']['phase_s']:.1f} s; phase 12: "
-          f"{readings['serve']['phase_s']:.1f} s; the script to here: "
+          f"{readings['serve']['phase_s']:.1f} s; phase 13: "
+          f"{readings['plots']['phase_s']:.1f} s; the script to here: "
           f"{readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 13: report ----
+    # ---- phase 14: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,9 @@ Reference: isdf/eval/figs/{all_seq.py,per_seq.py,slices.py}. Reads the
 per-run vox_res.json / res.json files (the port's runs, isdf_tpu's and the
 reference's shipped exp0 runs share the schema), aggregates mean +/- std
 over the seeded repeats of a sequence, and writes slice comparisons as
-PNGs (utils/image_io.py). The three matplotlib figures, ``plot_fig8``,
-``plot_all_seq`` and ``plot_per_seq``, are not ported yet (ROADMAP A.4):
-the card machine has no matplotlib, and the port's own drawing has its
-3-D rasteriser (vis/raster.py) and cv2's text (vis/text.py) but no 2-D
-axes, line plots or legends yet.
+PNGs (utils/image_io.py). The three figures, ``plot_fig8``,
+``plot_all_seq`` and ``plot_per_seq``, make isdf_tpu's matplotlib calls on
+the port's own plot kit (vis/plot.py; the card machine has no matplotlib).
 """
 
 import glob
@@ -18,6 +16,9 @@ import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from isdf_tpu_torch.train.batch import REPLICACAD_SEQS, SCANNET_SEQS
+from isdf_tpu_torch.vis import plot as plt
 
 
 def load_run(run_dir: str, fname: str = "vox_res.json") -> Optional[Dict]:
@@ -98,6 +99,8 @@ def final_values(runs: List[Dict], metric=("rays", "vis", "av_l1")):
 
 
 # paper metric picks (reference all_seq.py:17-18)
+# the paper's sequence grid (reference all_seq.py:29-37) is train/batch.py's
+# REPLICACAD_SEQS and SCANNET_SEQS
 CHOMP_IX = 2    # epsilon = 2 m
 COSSIM_IX = 1   # delta = two voxels
 
@@ -140,27 +143,280 @@ def aggregate_exp0(root: str, seq: str, metric: str = "sdf",
             len(complete))
 
 
-_PLOTS_LATER = ("{} draws with matplotlib, which the port does not use; it "
-                "waits for the viewer's 2-D plots (ROADMAP A.4: axes, "
-                "lines, legends), beside the rasteriser (vis/raster.py) "
-                "and text (vis/text.py) already in place")
+def plot_fig8(isdf_root: str, out_file: str, split: str = "vis",
+              seq_rows: Optional[List[List[str]]] = None,
+              label: str = "iSDF"):
+    """The paper's all-sequence figure (reference all_seq.py:430-470
+    fig_vis/fig_vox): rows = [sdf, chomp, grad] × sequence-rows, cols =
+    sequences; each panel mean ± std over the seeded repeats. Returns
+    {seq: {metric: (times, mean, std, n)}} so callers/tests can check
+    the aggregated numbers."""
+    if seq_rows is None:
+        seq_rows = [REPLICACAD_SEQS, SCANNET_SEQS]
+    ncols = len(seq_rows[0])
+    metrics = ["sdf", "chomp", "grad"]
+    ylabels = {"sdf": "SDF error [cm]", "chomp": "Collision cost error",
+               "grad": "Gradient cosine distance"}
+    nrows = len(seq_rows) * len(metrics)
+    fig, ax = plt.subplots(nrows=nrows, ncols=ncols,
+                           figsize=(4.3 * ncols, 3.2 * nrows),
+                           squeeze=False)
+    stats: Dict[str, Dict[str, tuple]] = {}
+    for sr, row_seqs in enumerate(seq_rows):
+        for c, seq in enumerate(row_seqs):
+            for mi, metric in enumerate(metrics):
+                a = ax[sr * len(metrics) + mi][c]
+                try:
+                    t, m, s, n = aggregate_exp0(isdf_root, seq,
+                                                metric, split)
+                except FileNotFoundError:
+                    a.set_visible(False)
+                    continue
+                stats.setdefault(seq, {})[metric] = (t, m, s, n)
+                a.plot(t, m, color="C0",
+                       label=f"{label} (n={n})" if mi == 0 else None)
+                a.fill_between(t, m - s, m + s, alpha=0.4, color="C0")
+                if mi == 0:
+                    a.set_title(seq, style="italic")
+                    a.legend(fontsize=8)
+                a.set_ylabel(ylabels[metric], fontsize=8)
+                if mi == len(metrics) - 1:
+                    a.set_xlabel("Sequence time [s]")
+    fig.suptitle(f"{split} region", y=1.0)
+    fig.tight_layout()
+    fig.savefig(out_file, dpi=110)
+    plt.close(fig)
+    return stats
 
 
-def plot_fig8(isdf_root: str, out_file: str, **kw):
-    """The paper's all-sequence figure (isdf_tpu figs.py:146): not ported
-    yet."""
-    raise NotImplementedError(_PLOTS_LATER.format("plot_fig8"))
+def plot_all_seq(root: str, out_file: str,
+                 metric=("rays", "vis", "av_l1"),
+                 ylabel: str = "SDF error [m]",
+                 baselines: Optional[Dict[str, str]] = None,
+                 voxblox_root: Optional[str] = None,
+                 gpuf_root: Optional[str] = None,
+                 fname: str = "vox_res.json"):
+    """Fig-8-style grid: one panel per sequence, mean +/- std band per
+    method (reference all_seq.py:289-428). ``baselines`` maps label ->
+    results root in the same (isdf) layout; ``voxblox_root`` /
+    ``gpuf_root`` overlay the published grid baselines from their OWN
+    result formats (eval/baselines.py: voxblox res.json nn/vox regions,
+    KinectFusion+ vox_res.json)."""
+    methods = {"isdf_tpu": root}
+    if baselines:
+        methods.update(baselines)
+
+    all_groups = {label: runs_by_sequence(r, fname)
+                  for label, r in methods.items()}
+    seqs = sorted({s for g in all_groups.values() for s in g})
+    if not seqs:
+        raise ValueError(f"no runs found under {root}")
+
+    ncol = min(3, len(seqs))
+    nrow = int(np.ceil(len(seqs) / ncol))
+    fig, axes = plt.subplots(nrow, ncol, figsize=(5 * ncol, 3.5 * nrow),
+                             squeeze=False)
+    for i, seq in enumerate(seqs):
+        ax = axes[i // ncol][i % ncol]
+        for label, groups in all_groups.items():
+            if seq not in groups:
+                continue
+            ms = mean_std_curve(groups[seq], metric)
+            if ms is None:
+                continue
+            t, m, s = ms
+            ax.plot(t, m, label=f"{label} (n={len(groups[seq])})")
+            ax.fill_between(t, m - s, m + s, alpha=0.25)
+        which = ("sdf_vox" if len(metric) > 1 and metric[1] == "vox"
+                 else "sdf_vis")
+        if voxblox_root is not None:
+            from isdf_tpu_torch.eval.baselines import load_voxblox_res
+            try:
+                c = load_voxblox_res(voxblox_root, seq)
+                ax.plot(c["times"], c[which], label="Voxblox", color="C1")
+            except FileNotFoundError:
+                pass
+        if gpuf_root is not None:
+            from isdf_tpu_torch.eval.baselines import load_gpu_fusion_res
+            try:
+                c = load_gpu_fusion_res(gpuf_root, seq)
+                ax.plot(c["times"], c[which], label="KinectFusion+",
+                        color="C2")
+            except FileNotFoundError:
+                pass
+        ax.set_title(seq)
+        ax.set_xlabel("simulated time [s]")
+        ax.set_ylabel(ylabel)
+        ax.legend(fontsize=8)
+    fig.tight_layout()
+    fig.savefig(out_file, dpi=120)
+    plt.close(fig)
+    return out_file
 
 
-def plot_all_seq(root: str, out_file: str, **kw):
-    """The fig-8-style grid per sequence (isdf_tpu figs.py:196): not
-    ported yet."""
-    raise NotImplementedError(_PLOTS_LATER.format("plot_all_seq"))
+def plot_per_seq(run_dir: str, out_file: str,
+                 fname: str = "vox_res.json", dataset=None,
+                 fps: float = 30.0):
+    """Single-run dashboard (reference eval/figs/per_seq.py save_plots):
+    average + surface L1, binned-L1 panel, CHOMP costs, gradient-cossim
+    panel, and the keyframe timeline strip (draw_keyframes,
+    per_seq.py:113-178 — depth thumbnails at each keyframe's sim time
+    when a ``dataset`` is passed, event markers otherwise).
 
+    Handles both artifact schemas: vox_res.json (vis/vox nesting +
+    av_cossim + visible_surf) and the flat online res.json (av_l1 /
+    binned_l1 / l1_chomp_costs only) — panels whose fields are absent
+    from the artifact are annotated rather than left broken."""
+    full = load_run(run_dir, fname) or load_run(run_dir, "res.json")
+    if not full:
+        raise ValueError(f"no results in {run_dir}")
+    run = full.get("sdf_eval", full)
+    kf_ids = full.get("kf_indices", [])
 
-def plot_per_seq(run_dir: str, out_file: str, **kw):
-    """The single-run dashboard (isdf_tpu figs.py:265): not ported yet."""
-    raise NotImplementedError(_PLOTS_LATER.format("plot_per_seq"))
+    def _series(field, idx=None, region="vis", top="rays"):
+        ts, vals = [], []
+        for k, entry in run.items():
+            if not (isinstance(entry, dict) and top in entry):
+                continue
+            r = entry[top]
+            if isinstance(r, dict) and ("vis" in r or "vox" in r):
+                r = r.get(region)
+            elif region != "vis":
+                r = None          # flat (online) schema is vis-only
+            if not isinstance(r, dict) or field not in r:
+                continue
+            ts.append(entry.get("time", float(k)))
+            v = r[field]
+            vals.append(v[idx] if idx is not None else v)
+        order = np.argsort(ts)
+        return (np.asarray(ts)[order],
+                np.asarray(vals, float)[order])
+
+    fig = plt.figure(figsize=(16, 9))
+    gs = fig.add_gridspec(3, 4, height_ratios=[1, 1, 0.6])
+    axes = [fig.add_subplot(gs[r, c]) for r in range(2) for c in range(4)]
+    ax_kf = fig.add_subplot(gs[2, :])
+
+    # row 1: average L1 (vis + vox), surface L1, binned, chomp
+    for region, style in (("vis", "-"), ("vox", "--")):
+        t, l1 = _series("av_l1", region=region)
+        if len(t):
+            axes[0].plot(t, l1, style, label=region)
+    axes[0].set_title("SDF L1 [m] (Average)")
+    axes[0].legend(fontsize=7)
+
+    ts, sv = _series("av_l1", region="vis", top="visible_surf")
+    if len(ts):
+        axes[1].plot(ts, sv)
+    else:
+        axes[1].annotate("no surface region\n(online res.json)",
+                         (0.5, 0.5), xycoords="axes fraction",
+                         ha="center", fontsize=9, color="gray")
+    axes[1].set_title("Surface (s = 0 cm) L1 [m]")
+
+    bin_labels = ["<0", "0-0.1", "0.1-0.2", "0.2-0.5", "0.5-1", ">1"]
+    for b, lab in enumerate(bin_labels):
+        ts, vals = _series("binned_l1", b)
+        if len(ts):
+            axes[2].plot(ts, vals, label=lab)
+    axes[2].set_title("binned L1 by GT distance [m]")
+    axes[2].legend(fontsize=7)
+
+    for i, eps in enumerate([1.0, 1.5, 2.0]):
+        ts, vals = _series("l1_chomp_costs", i)
+        if len(ts):
+            axes[3].plot(ts, vals, label=f"eps={eps}")
+    axes[3].set_title("CHOMP-cost |error|")
+    axes[3].legend(fontsize=7)
+
+    # row 2: gradient cossim (vis + vox), vol-region L1, eval cadence
+    any_cos = False
+    for region, style in (("vis", "-"), ("vox", "--")):
+        ts, vals = _series("av_cossim", 0, region=region)
+        if len(ts):
+            axes[4].plot(ts, vals, style, label=region)
+            any_cos = True
+    if not any_cos:
+        axes[4].annotate("no cossim in artifact\n(online res.json)",
+                         (0.5, 0.5), xycoords="axes fraction",
+                         ha="center", fontsize=9, color="gray")
+    axes[4].set_title("gradient cosine distance")
+    if any_cos:
+        axes[4].legend(fontsize=7)
+
+    ts, vals = _series("av_l1", top="vol", region="vis")
+    if len(ts):
+        axes[5].plot(ts, vals, label="vol")
+    # per-object region (reference per_seq objects column): mean L1 over
+    # the obj_bounds boxes at each eval mark
+    ts_o, vals_o = [], []
+    for k, entry in run.items():
+        if isinstance(entry, dict) and isinstance(entry.get("objects"),
+                                                  dict):
+            arr = [v for v in entry["objects"].get("l1", [])
+                   if v is not None and np.isfinite(v)]
+            if arr:
+                ts_o.append(entry.get("time", float(k)))
+                vals_o.append(float(np.mean(arr)))
+    if ts_o:
+        order = np.argsort(ts_o)
+        axes[5].plot(np.asarray(ts_o)[order],
+                     np.asarray(vals_o)[order], "--", label="objects")
+    if len(ts) or ts_o:
+        axes[5].legend(fontsize=7)
+    else:
+        axes[5].annotate("no full-volume region", (0.5, 0.5),
+                         xycoords="axes fraction", ha="center",
+                         fontsize=9, color="gray")
+    axes[5].set_title("full-volume / objects L1 [m]")
+
+    t_all, l1_all = _series("av_l1")
+    if len(t_all) >= 2:
+        axes[6].plot(t_all[1:], np.diff(t_all), ".-")
+    axes[6].set_title("eval cadence [s]")
+
+    # first/last binned profile (convergence fingerprint)
+    if len(t_all):
+        series = [_series("binned_l1", b)[1] for b in range(6)]
+        for which, style in ((0, ":"), (-1, "-")):
+            prof = [p[which] for p in series if len(p)]
+            if prof:
+                axes[7].plot(range(len(prof)), prof, style,
+                             label=f"t={t_all[which]:.0f}s")
+        axes[7].set_xticks(range(6), bin_labels, fontsize=7)
+        axes[7].legend(fontsize=7)
+    axes[7].set_title("binned profile first vs last")
+
+    for ax in axes[:7]:
+        ax.set_xlabel("simulated time [s]", fontsize=8)
+
+    # bottom strip: keyframe timeline (reference draw_keyframes)
+    t_end = float(t_all[-1]) if len(t_all) else (
+        max(kf_ids) / fps if kf_ids else 1.0)
+    kf_times = [i / fps for i in kf_ids]
+    ax_kf.vlines(kf_times, 0, 1, color="C3", lw=1)
+    ax_kf.set_xlim(0, max(t_end, 1e-3))
+    ax_kf.set_yticks([])
+    ax_kf.set_xlabel("simulated time [s]")
+    ax_kf.set_title(f"keyframe timeline ({len(kf_ids)} keyframes)")
+    if dataset is not None and kf_ids:
+        # depth thumbnails at keyframe sim times
+        for fid, kt in zip(kf_ids, kf_times):
+            try:
+                s = dataset[int(fid)]
+            except Exception:
+                continue
+            dep = np.asarray(s["depth"], float)
+            dep = dep / max(np.nanmax(dep), 1e-6)
+            w = t_end * 0.055
+            ax_kf.imshow(dep, extent=(kt, kt + w, 0.15, 0.95),
+                         aspect="auto", cmap="viridis", zorder=2)
+        ax_kf.set_ylim(0, 1)
+
+    fig.tight_layout()
+    fig.savefig(out_file, dpi=120)
+    plt.close(fig)
+    return out_file
 
 
 def slice_comparison_with_baselines(trainer, out_file: str, seq: str,

@@ -10,9 +10,28 @@ tensors passed as ``draws`` (the tests hand both packages the same draws).
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from isdf_tpu_torch.ops.geometry import origin_dirs_W
+
+
+class RaySamples(NamedTuple):
+    """Everything the loss needs about one batch of rays (isdf_tpu's
+    RaySamples). R = n_frames * n_rays rays, S = n_surf + n_strat samples."""
+    pc: torch.Tensor            # [R, S, 3] world-space sample points
+    z_vals: torch.Tensor        # [R, S] z depth of each sample
+    dirs_C: torch.Tensor        # [R, 3] camera-frame ray directions
+    dirs_W: torch.Tensor        # [R, 3] world-frame ray directions
+    origins: torch.Tensor       # [R, 3] ray origins
+    depth: torch.Tensor         # [R] depth at the pixel (1 where invalid)
+    T_WC: torch.Tensor          # [R, 4, 4] pose of the ray's frame
+    normals: torch.Tensor       # [R, 3] surface normal (zeros if unused)
+    valid: torch.Tensor         # [R] bool: depth (and normal) valid
+    indices_b: torch.Tensor     # [R] frame index of each ray
+    indices_h: torch.Tensor     # [R]
+    indices_w: torch.Tensor     # [R]
 
 
 def gumbel(gen, shape, device):
@@ -108,3 +127,45 @@ def sample_along_rays(gen, T_WC, dirs_C, gt_depth, min_depth: float,
         z_vals = torch.cat([gt_depth[:, None], near, z_vals], dim=1)
     pc = origins[:, None, :] + dirs_W[:, None, :] * z_vals[:, :, None]
     return pc, z_vals, origins, dirs_W
+
+
+def sample_rays_from_frames(gen, depth_batch, T_WC_batch, dirs_C_img,
+                            normal_batch: Optional[torch.Tensor],
+                            frame_valid, n_rays: int, min_depth: float,
+                            dist_behind_surf: float, n_strat_samples: int,
+                            n_surf_samples: int, draws=None) -> RaySamples:
+    """Pixels -> gathers -> ray samples, on the frames' device (isdf_tpu
+    sampling.py:150-200, the reference's sample_points). depth_batch
+    [F, H, W], T_WC_batch [F, 4, 4], dirs_C_img [H, W, 3], normal_batch
+    [F, H, W, 3] or None, frame_valid [F] bool. A ray with zero depth, a
+    NaN normal or an invalid frame is masked, not dropped, and its depth
+    replaced by 1 so no NaN enters the samples. draws = (ih [T], iw [T],
+    u [T, n_strat], normal [T, n_surf - 1]) with T = F * n_rays."""
+    F, H, W = depth_batch.shape
+    dev = depth_batch.device
+    if draws is None:
+        ib, ih, iw = sample_pixels(gen, n_rays, F, H, W, device=dev)
+        ray_draws = None
+    else:
+        ih, iw = draws[0].to(dev), draws[1].to(dev)
+        ib = torch.arange(F, device=dev).repeat_interleave(n_rays)
+        ray_draws = (draws[2].to(dev), draws[3].to(dev))
+    depth = depth_batch[ib, ih, iw]
+    valid = (depth != 0.0) & frame_valid.to(dev)[ib]
+    if normal_batch is not None:
+        normals = normal_batch[ib, ih, iw]
+        valid &= ~torch.isnan(normals[..., 0])
+        normals = torch.nan_to_num(normals, nan=0.0)
+    else:
+        normals = torch.zeros((depth.shape[0], 3), dtype=depth.dtype,
+                              device=dev)
+    depth_safe = torch.where(valid, depth, torch.ones_like(depth))
+    dirs_C = dirs_C_img[ih, iw]
+    T_WC = T_WC_batch[ib]
+    pc, z_vals, origins, dirs_W = sample_along_rays(
+        gen, T_WC, dirs_C, depth_safe, min_depth, dist_behind_surf,
+        n_strat_samples, n_surf_samples, draws=ray_draws)
+    return RaySamples(pc=pc, z_vals=z_vals, dirs_C=dirs_C, dirs_W=dirs_W,
+                      origins=origins, depth=depth_safe, T_WC=T_WC,
+                      normals=normals, valid=valid, indices_b=ib,
+                      indices_h=ih, indices_w=iw)

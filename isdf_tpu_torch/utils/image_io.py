@@ -248,7 +248,8 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """PNG bytes of uint8 grey (H, W) or BGR (H, W, 3), or uint16 grey;
+    """PNG bytes of uint8 grey (H, W), BGR (H, W, 3) or BGRA (H, W, 4), or
+    uint16 grey;
     every row Up-filtered; zlib at level 1, cv2's default."""
     img = np.asarray(img)
     if img.ndim == 3 and img.shape[2] == 1:
@@ -265,6 +266,9 @@ def encode_png(img: np.ndarray) -> bytes:
         elif img.shape[2] == 3:
             ctype = 2
             rows = img[:, :, ::-1].reshape(img.shape[0], -1)  # BGR -> RGB
+        elif img.shape[2] == 4:
+            ctype = 6
+            rows = img[:, :, [2, 1, 0, 3]].reshape(img.shape[0], -1)
         else:
             raise ValueError(f"PNG: {img.shape[2]} channels")
     else:

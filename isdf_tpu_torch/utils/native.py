@@ -3,11 +3,12 @@ ctypes (isdf_tpu/utils/native.py).
 
 ``csrc/marching_tets.cpp`` (a copy of isdf_tpu's),
 ``csrc/image_codec.cpp`` (the PNG/JPEG byte work of utils/image_io.py) and
-``csrc/raster.cpp`` (the fill of vis/raster.py's 3-D renders) are
+``csrc/raster.cpp`` (the fill of vis/raster.py's 3-D renders) and
+``csrc/plot2d.cpp`` (the fill of vis/plot.py's 2-D figures) are
 compiled with -O3 into the port's build directory (utils/nvcc.py::
 build_dir, which .gitignore lists), keyed by the hash of the source.
 Without a compiler the mesh and codec callers fall back to their numpy
-implementations (the rasteriser has none and raises); ``CALLS`` counts
+implementations (the rasterisers have none and raise); ``CALLS`` counts
 the calls that the native library served (and, for the image codec, the
 ones numpy served), so a caller can tell which ran.
 """
@@ -106,6 +107,17 @@ def _build(name: str) -> Optional[ctypes.CDLL]:
                                      f32])):
             getattr(lib, fn).restype = None
             getattr(lib, fn).argtypes = args
+    if name == "plot2d":
+        f32 = ctypes.POINTER(ctypes.c_float)
+        f64 = ctypes.POINTER(ctypes.c_double)
+        lp = ctypes.POINTER(ctypes.c_long)
+        ip = ctypes.POINTER(ctypes.c_int)
+        i, n, d = ctypes.c_int, ctypes.c_long, ctypes.c_double
+        lib.plot_fill.restype = None
+        lib.plot_fill.argtypes = [f32, i, i, f64, lp, n, f32, d, ip]
+        lib.plot_stroke.restype = None
+        lib.plot_stroke.argtypes = [f32, i, i, f64, lp, n, d, f32, d, i, i,
+                                    ip]
     return lib
 
 

@@ -12,6 +12,12 @@ on the CPU.
   directories written by both packages' loops.
 * ``slice_comparison`` equals isdf_tpu's on the same weights, but for at
   most 0.1% of pixels, each by one colormap bin.
+* ``plot_fig8``, ``plot_all_seq`` and ``plot_per_seq`` (drawn by the
+  port's plot kit, vis/plot.py) on run directories in both artifact
+  schemas: ``plot_fig8``'s stats equal isdf_tpu's exactly; each figure
+  has matplotlib's canvas size and axes boxes (within 1 px) and lies
+  within tests/test_torch_plot.py's image bound of isdf_tpu's PNG, with
+  and without dataset thumbnails.
 """
 
 import json
@@ -31,6 +37,10 @@ from isdf_tpu_torch.data.sdf_util import _rdbu_lut
 from isdf_tpu_torch.eval import baselines as B
 from isdf_tpu_torch.eval import figs as F
 from isdf_tpu_torch.train import batch as BATCH
+from isdf_tpu_torch.utils import image_io as IO
+from tests.test_torch_plot import (Captured, assert_same_boxes,
+                                   assert_within_bound, read_rgb,
+                                   write_runs)
 
 BASE = {"dataset": {"format": "replicaCAD", "fps": 30},
         "model": {"hidden_feature_size": 256}, "seed": 5}
@@ -290,9 +300,13 @@ def test_aggregate_exp0_equals_isdf_tpus(tmp_path):
             assert a[3] == 2
     with pytest.raises(FileNotFoundError):
         F.aggregate_exp0(str(tmp_path), "scene0010_00")
-    for name in ("plot_fig8", "plot_all_seq", "plot_per_seq"):
-        with pytest.raises(NotImplementedError, match="viewer"):
-            getattr(F, name)(str(tmp_path), str(tmp_path / "x.png"))
+    # the three plots draw these runs (held to isdf_tpu's figures below)
+    out = str(tmp_path / "x.png")
+    stats = F.plot_fig8(str(tmp_path), out)
+    assert list(stats) == ["apt_2_nav"] and stats["apt_2_nav"]["sdf"][3] == 2
+    assert F.plot_all_seq(str(tmp_path), out) == out
+    assert F.plot_per_seq(str(tmp_path / "apt_2_nav_0"), out) == out
+    assert IO.imread(out).shape == (1080, 1920, 3)
 
 
 def test_slice_comparison_equals_isdf_tpus(loop_runs, tmp_path):
@@ -331,3 +345,97 @@ def test_slice_comparison_with_baselines(loop_runs, tmp_path,
         tt, str(tmp_path / "solo.png"), seq,
         voxblox_root=str(tmp_path / "absent"))
     assert cv2.imread(str(tmp_path / "solo.png")).shape == (64, 3 * 64, 3)
+
+
+# ---------------------------------------------------------------------------
+# the plots, against isdf_tpu's matplotlib figures
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def exp0_runs(tmp_path_factory):
+    """Three of the paper's sequences in the exp0 layout and a single run
+    in the vox_res.json schema (tests/test_torch_plot.py::write_runs)."""
+    root = tmp_path_factory.mktemp("exp0")
+    write_runs(root)
+    return root
+
+
+@pytest.mark.parametrize("split", ["vis", "vox"])
+def test_plot_fig8_equals_isdf_tpus(exp0_runs, tmp_path, monkeypatch,
+                                    split):
+    cap = Captured(monkeypatch)
+    rows = [["apt_2_nav", "apt_3_obj"], ["scene0010_00", "scene0031_00"]]
+    want = JF.plot_fig8(str(exp0_runs), str(tmp_path / "j.png"), split,
+                        seq_rows=rows)
+    got = F.plot_fig8(str(exp0_runs), str(tmp_path / "t.png"), split,
+                      seq_rows=rows)
+    assert list(got) == list(want) == ["apt_2_nav", "apt_3_obj",
+                                       "scene0010_00"]
+    for seq in want:
+        assert list(got[seq]) == list(want[seq]) == ["sdf", "chomp", "grad"]
+        for m in want[seq]:
+            for a, b in zip(got[seq][m], want[seq][m]):
+                np.testing.assert_array_equal(a, b)
+    assert got["apt_3_obj"]["sdf"][3] == 2       # the unfinished repeat
+    assert_same_boxes(cap.mpl[0], cap.kit[0])
+    assert_within_bound(read_rgb(tmp_path / "j.png"),
+                        read_rgb(tmp_path / "t.png"), "fig8")
+
+
+def test_plot_all_seq_equals_isdf_tpus(exp0_runs, baseline_files, tmp_path,
+                                       monkeypatch):
+    cap = Captured(monkeypatch)
+    broot, seq = baseline_files
+    # the baselines' sequence beside the exp0 runs, as another method
+    kw = dict(baselines={"repeat": str(exp0_runs)},
+              voxblox_root=str(broot / "vox"), gpuf_root=str(broot / "gpuf"))
+    assert JF.plot_all_seq(str(exp0_runs), str(tmp_path / "j.png"),
+                           **kw) == str(tmp_path / "j.png")
+    assert F.plot_all_seq(str(exp0_runs), str(tmp_path / "t.png"),
+                          **kw) == str(tmp_path / "t.png")
+    assert_same_boxes(cap.mpl[0], cap.kit[0])
+    assert_within_bound(read_rgb(tmp_path / "j.png"),
+                        read_rgb(tmp_path / "t.png"), "all_seq")
+    metric = ("rays", "vox", "av_l1")
+    JF.plot_all_seq(str(exp0_runs), str(tmp_path / "j2.png"), metric=metric)
+    F.plot_all_seq(str(exp0_runs), str(tmp_path / "t2.png"), metric=metric)
+    assert_within_bound(read_rgb(tmp_path / "j2.png"),
+                        read_rgb(tmp_path / "t2.png"), "all_seq vox")
+    with pytest.raises(ValueError, match="no runs"):
+        F.plot_all_seq(str(tmp_path), str(tmp_path / "x.png"))
+
+
+class _Frames:
+    """A dataset of depth frames: dataset[i]["depth"], the last frames
+    missing (isdf_tpu's thumbnails skip a frame that raises)."""
+
+    def __init__(self, n):
+        yy, xx = np.mgrid[0:48, 0:64]
+        self.n, self.yy, self.xx = n, yy, xx
+
+    def __getitem__(self, i):
+        if i >= self.n:
+            raise IndexError(i)
+        return {"depth": 1.0 + 0.5 * np.sin(self.xx / 7.0 + i)
+                + 0.3 * self.yy / 48}
+
+
+@pytest.mark.parametrize("schema,thumbs", [("vox_res", False),
+                                           ("online", False),
+                                           ("online", True)])
+def test_plot_per_seq_equals_isdf_tpus(exp0_runs, loop_runs, tmp_path,
+                                       monkeypatch, schema, thumbs):
+    cap = Captured(monkeypatch)
+    if schema == "vox_res":
+        run = str(exp0_runs / "single")
+    else:                   # the port loop's res.json (sdf_eval, kf_indices)
+        run = str(loop_runs[0] / "room_1")
+    ds = _Frames(30) if thumbs else None
+    JF.plot_per_seq(run, str(tmp_path / "j.png"), dataset=ds)
+    assert F.plot_per_seq(run, str(tmp_path / "t.png"),
+                          dataset=ds) == str(tmp_path / "t.png")
+    assert_same_boxes(cap.mpl[0], cap.kit[0])
+    assert_within_bound(read_rgb(tmp_path / "j.png"),
+                        read_rgb(tmp_path / "t.png"), f"per_seq {schema}")
+    with pytest.raises(ValueError, match="no results"):
+        F.plot_per_seq(str(tmp_path), str(tmp_path / "x.png"))

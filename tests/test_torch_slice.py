@@ -254,7 +254,9 @@ PORT_MODULES = [
     "isdf_tpu_torch.vis.raster", "isdf_tpu_torch.vis.views",
     "isdf_tpu_torch.vis.viewer", "isdf_tpu_torch.vis.composite",
     "isdf_tpu_torch.vis.display", "isdf_tpu_torch.train.train_vis",
-    "isdf_tpu_torch.vis.server",
+    "isdf_tpu_torch.vis.server", "isdf_tpu_torch.vis.plot",
+    "isdf_tpu_torch.vis.plot_font", "isdf_tpu_torch.eval.debug",
+    "isdf_tpu_torch.vis.debug",
 ]
 
 

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --vis-only       # build, then phase 11 only
     python3 chip_smoke.py --serve-only     # build, then phase 12 only
     python3 chip_smoke.py --plots-only     # build, then phase 13 only
+    python3 chip_smoke.py --parallel-only  # build, then phase 14 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
   1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
@@ -155,9 +156,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      one refresh on the loop's thread and no map evaluation on any other,
      K1-pc once a step, the parameters' bits and the captures of a plain
      run; three such runs, each after a plain run, their median billed
-     device ms a step less the captures' seconds within 3% of the plain
-     runs' median (a capture is 0.01-0.2 s of host work billed with its
-     bundle; the full bills are printed beside), and each loop's wall,
+     device ms a step less the graphs' set-up (each key's eager first
+     step and its capture, 0.03-0.43 s of host work billed with its
+     bundle) within 3% of the plain runs' median (the full bills, the
+     warm-ups and the captures are printed beside), and each loop's wall,
      less its own monitor and refresh seconds, at most twice its plain
      run's; (b) the
      capture stress run: phase 10's keyed schedule (and a 4-row arena's)
@@ -186,13 +188,36 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      is not blank checked; it prints the seconds per figure, the oracles'
      gaps, the billed device ms/step and the phase's wall (under 90 s);
      --plots-only runs it alone after the build;
- 14. print the card, the kernels' JSON line, and the result line.
+ 14. data parallelism and fleet mode on shards of the one card, at full
+     width (synthetic.json, 27,000 points a step): the first 4 steps of a
+     dp = 2 and a dp = 4 trainer (devices ["cuda:0"] * N) against dp = 1
+     from the same seed (losses rtol 2e-4 / atol 1e-5 and parameters 5e-5,
+     isdf_tpu's own bounds, every parameter after the first step; that
+     step's gradient by block within 5e-4), K1-pc N times a step and
+     nothing else; the
+     pose burst on the dp = 2 trainer, then a finite step; 300 steps at
+     dp = 2 on graphs with loss, av_l1 and SDF MAE falling; the route
+     without the fused op (tpu.pe_in_kernel=false on the mesh): its first
+     step through K2/K3 against the same step through the plain op on the
+     same draws (loss 3e-6, K2 7e-2 max / 1e-2 norm, the parameter
+     gradient through K3 against the plain VJP on the step's own
+     cotangents by block 5e-4), then 200 steps with
+     K2 and K3 each twice a step, loss and av_l1 falling; fleet mode with
+     K = 2 and 4 scenes on a 2-shard "scene" mesh of the card, each scene
+     its solo bits, each round's bill within 5% of the lockstep
+     stepper's; billed device ms/step, kernels a step, the traced idle
+     share and peak memory at dp = 1, 2, 4 and on the K2/K3 route
+     (profile_step.profile). Under 90 s; --parallel-only runs it alone
+     after the build. K2's and K3's launches in the kernels' line are this
+     phase's trainer's;
+ 15. print the card, the kernels' JSON line, and the result line.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -973,17 +998,19 @@ def planted_faults(torch, s):
                     f"{label}: the {name} check passed on a planted fault")
 
 
-def run_trainer(torch, overrides, max_steps, sim_dt, eager=False):
+def run_trainer(torch, overrides, max_steps, sim_dt, eager=False,
+                device=None):
     """One run of the online trainer through its entry points. Returns
     (summary dict, launch counts of this run). Its evals: the reference
     protocol's entry (eval/protocol.py, "rays", as train_loop makes it)
-    and the SDF error over the room (SyntheticDataset.sdf_mae)."""
+    and the SDF error over the room (SyntheticDataset.sdf_mae).
+    ``device``: the Trainer's (a list: its data-parallel mesh)."""
     from isdf_tpu_torch.engine.loop import _timed_eval, train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.utils.config import load_config
 
     cfg = load_config(CONFIG, overrides=overrides)
-    trainer = Trainer(cfg, seed=1, eager=eager)
+    trainer = Trainer(cfg, seed=1, eager=eager, device=device)
     assert trainer.device.type == "cuda"
     trainer._per_step_device_s = sim_dt
     trainer._bill_exact = True
@@ -3003,14 +3030,17 @@ def _thread_spy(cls, name, calls):
 
 
 def _bill(tr):
-    """A run's bill: billed device ms a step, the seconds of its captures
-    (billed with the bundles they fall in: host work that varies by tens
-    of ms from run to run, some 3% of a 600-step run's bill) and billed ms
-    a step less them."""
-    cap = tr.fns.graphs.stats["capture_s"]
+    """A run's bill: billed device ms a step, the host seconds of its
+    graphs' set-up, each key's eager first step (warm) and its capture,
+    and billed ms a step less them. The set-up is billed with the bundle
+    it falls in; it is one-off host work that varies from 0.03 to 0.4 s
+    from run to run (0.025 to 0.03 typical, 1.3 to 25% of a 600-step
+    run's bill; tools/serve_bill_split.py)."""
+    st = tr.fns.graphs.stats
+    setup = st["capture_s"] + st["warm_s"]
     return dict(device_ms_per_step=1e3 * tr.measured_s / VIS_STEPS,
-                capture_s=cap,
-                steps_ms_per_step=1e3 * (tr.measured_s - cap) / VIS_STEPS)
+                capture_s=st["capture_s"], warm_s=st["warm_s"],
+                steps_ms_per_step=1e3 * (tr.measured_s - setup) / VIS_STEPS)
 
 
 def _watched_once(torch, root, name):
@@ -3112,7 +3142,8 @@ def _watched_once(torch, root, name):
 def _watched_run(torch, root):
     """Phase 12 (a): SERVE_REPS pairs of a plain run and a watched, queried
     run, each watched run held to the first plain run's bits and to its
-    pair's captures; the median bill less captures with clients within
+    pair's captures; the median bill less the graphs' set-up with
+    clients within
     SERVE_BILL_TOL of the plain runs' (see _bill), and
     each watched loop's wall, less its own monitor and refresh seconds,
     within SERVE_WALL_RATIO of its pair's plain loop. Returns the readings
@@ -3145,7 +3176,8 @@ def _watched_run(torch, root):
     refresh_s = time.perf_counter() - t
     del web
     med = {k: [float(np.median([r[k] for r in rs])) for rs in (runs, plains)]
-           for k in ("device_ms_per_step", "steps_ms_per_step", "capture_s")}
+           for k in ("device_ms_per_step", "steps_ms_per_step", "capture_s",
+                     "warm_s")}
     out = dict(runs=runs, plains=plains, medians=med,
                refresh_s_grid200=refresh_s)
     print(f"serve [watched]: {json.dumps(out)}", flush=True)
@@ -3155,7 +3187,8 @@ def _watched_run(torch, root):
                           for rs in (runs, plains))
     print("serve [watched]: with clients / without: billed device ms/step "
           + row("device_ms_per_step", "{:.4f}") + "; captures s "
-          + row("capture_s", "{:.4f}") + "; billed ms/step less captures "
+          + row("capture_s", "{:.4f}") + "; warm-up s "
+          + row("warm_s", "{:.4f}") + "; billed ms/step less the set-up "
           + row("steps_ms_per_step", "{:.4f}") + "; the loop's wall less "
           "its own viewer work against its plain loop's " + ", ".join(
               f"{r['loop_wall_ratio']:.2f}x" for r in runs), flush=True)
@@ -3164,8 +3197,8 @@ def _watched_run(torch, root):
            f"{[p['captures'] for p in plains]}")
     w, p = med["steps_ms_per_step"]
     expect(abs(w - p) <= SERVE_BILL_TOL * p,
-           f"watched run: billed {w:.4f} ms/step less captures with "
-           f"clients, {p:.4f} without (medians)")
+           f"watched run: billed {w:.4f} ms/step less the graphs' set-up "
+           f"with clients, {p:.4f} without (medians)")
     expect(all(r["loop_wall_ratio"] <= SERVE_WALL_RATIO for r in runs),
            "watched run: the loop's wall against the plain loop's " + ", ".join(
                f"{r['loop_wall_ratio']:.2f}x" for r in runs))
@@ -3311,7 +3344,7 @@ def serve_phase(torch, root):
             f"{r['planner_points_per_s'] / 1e6:.4f} "
             f"({r['planner_requests']} requests)" for r in w["runs"])
         + "; billed device ms/step {:.4f} with clients, {:.4f} without, "
-        "less captures {:.4f}, {:.4f} (medians of {}); watched runs ".format(
+        "less the set-up {:.4f}, {:.4f} (medians of {}); watched runs ".format(
             *w["medians"]["device_ms_per_step"],
             *w["medians"]["steps_ms_per_step"], SERVE_REPS) + ", ".join(
             f"{r['wall_s']:.1f}" for r in w["runs"]) + " s wall (plain loops "
@@ -3521,12 +3554,343 @@ def plots_phase(torch, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data parallelism over a ray mesh and fleet mode, on one card
+# ---------------------------------------------------------------------------
+
+# the bounds of isdf_tpu's own dp test over its 4-step bundle (tests/
+# test_parallel.py:52-69). The parameters are held after the first step,
+# every entry: later, AdamW's steps lr * g / (|g| + 1e-8) on gradients
+# near the epsilon take the sign that the order of the sums gives them
+# (full width, bf16 products: 2.1e-3 apart after 10 steps, PERF.md
+# section 6)
+DP_LOSS_RTOL, DP_LOSS_ATOL, DP_PARAMS, DP_STEPS = 2e-4, 1e-5, 5e-5, 4
+# a fleet round's bill against the lockstep stepper's for the same scenes
+FLEET_BILL_REL = 0.05
+# the fleet runs' arena rows (the shipped 160 cut: 3 x K trainers at once)
+FLEET_ARENA = "tpu.kf_buffer_size=16"
+NONFUSED = "tpu.pe_in_kernel=false"
+
+
+def _dp_sets(devices, sets=()):
+    return list(sets) + ([f"tpu.data_parallel={len(devices)}"]
+                         if devices else [])
+
+
+def _first_bundle(torch, devices, sets=(), n=DP_STEPS):
+    """A trainer on ``devices`` (None: one card; a list: its dp mesh) from
+    seed 1 with two keyframes, then ``n`` steps, cut 1 + (n - 1). Returns
+    (trainer, the n losses, the parameters after the first step, its
+    gradient, the launches)."""
+    import numpy as np
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, overrides=_dp_sets(devices, sets))
+    tr = Trainer(cfg, seed=1, device=devices)
+    for fid in (0, 30):
+        tr.last_is_keyframe = True
+        tr.add_frame(tr.get_data([fid])[0])
+    first, update = [], tr.fns.update
+
+    def recording(params, opt_state, buf, grads, *rest):
+        if not first:   # the key's first step, run eagerly before capture
+            first.append(tuple(g.clone() for g in grads))
+        return update(params, opt_state, buf, grads, *rest)
+    tr.fns.update = recording
+    reset_launches()
+    s1 = tr.run_steps(1)
+    p1 = {k: v.clone() for k, v in tr.params.items()}
+    s2 = tr.run_steps(n - 1)
+    torch.cuda.synchronize()
+    tr.fns.update = update
+    return (tr, np.concatenate([s1["total_loss"], s2["total_loss"]]), p1,
+            first[0], read_launches())
+
+
+def _dp_parity(torch, label, ref, devices, n=DP_STEPS):
+    """dp = len(devices) against dp = 1 (``ref``) over the first ``n``
+    steps: the losses, the first step's gradient by block (the kernel
+    table's limit) and the parameters after it."""
+    import numpy as np
+    _, ref_loss, ref_p1, ref_g, _ = ref
+    tr, loss, p1, g, launches = _first_bundle(
+        torch, devices, ["model.refine_poses=1"], n)
+    rel = float(np.max(np.abs(loss - ref_loss) / np.abs(ref_loss)))
+    kb = grad_blocks(tr.model, *g)
+    pb = grad_blocks(tr.model, *ref_g)
+    gblock = max(rel_err(kb[key], pb[key])[1] for key in kb)
+    d_all = max((p1[k] - ref_p1[k]).abs().max().item() for k in ref_p1)
+    print(f"parallel [{label}]: losses of {n} steps {loss.tolist()} against "
+          f"dp = 1 {ref_loss.tolist()}: max rel {rel:.3e} (rtol "
+          f"{DP_LOSS_RTOL}, atol {DP_LOSS_ATOL}); first step's gradient "
+          f"max block err {gblock:.3e} (tol {TOL_GRAD}); parameters after "
+          f"it max |diff| {d_all:.3e} (tol {DP_PARAMS}); launches "
+          f"{launches}", flush=True)
+    expect(np.allclose(loss, ref_loss, rtol=DP_LOSS_RTOL, atol=DP_LOSS_ATOL),
+           f"parallel [{label}]: losses differ from dp = 1")
+    expect(gblock <= TOL_GRAD, f"parallel [{label}]: the gradient differs")
+    expect(d_all < DP_PARAMS, f"parallel [{label}]: parameters differ")
+    D = len(devices)
+    expect(launches["K1-pc"] == D * n and all(
+        v == 0 for k, v in launches.items() if k != "K1-pc"),
+        f"parallel [{label}]: launches {launches}, not {D} K1-pc a step")
+    return tr, dict(loss_rel=rel, grad_block_err=gblock,
+                    params_max_diff=d_all)
+
+
+def _nonfused_first_step(torch, devices):
+    """One step of the dp trainer without the fused op through K2/K3,
+    against the same step through the plain reverse-fused op on the same
+    draws: the loss, K2's outputs on each shard's inputs, and the step's
+    parameter gradient (each shard's K3, added in shard order) by block
+    against the plain op's VJP on the same cotangents."""
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
+    from isdf_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, overrides=_dp_sets(devices, [NONFUSED]))
+    runs = {}
+    for kind in ("kernel", "plain"):
+        tr = Trainer(cfg, seed=1, device=devices, eager=True)
+        model = tr.model
+        assert tr.fns.train_op is None and tr.fns.rf_op is not None
+        grads, seen, update = [], [], tr.fns.update
+        op = (make_reverse_fused_mlp(tr.model) if kind == "plain"
+              else tr.fns.rf_op)
+
+        def record_grads(params, opt_state, buf, g, *rest, grads=grads,
+                         update=update):
+            grads.append(tuple(x.clone() for x in g))
+            return update(params, opt_state, buf, g, *rest)
+
+        def recording(p, *a, op=op, seen=seen):
+            out = op(p, *a)
+            # copies: the leaves alias the parameters, which AdamW updates
+            # in place; the hooks keep each output's cotangent
+            cot = [None, None]
+            seen.append(({k: v.detach().clone() for k, v in p.items()}, a,
+                         tuple(o.detach() for o in out), cot))
+            for i, o in enumerate(out):
+                o.register_hook(lambda g, i=i, cot=cot:
+                                cot.__setitem__(i, g.detach().clone()))
+            return out
+        tr.fns.update, tr.fns.rf_op = record_grads, recording
+        for fid in (0, 30):
+            tr.last_is_keyframe = True
+            tr.add_frame(tr.get_data([fid])[0])
+        reset_launches()
+        runs[kind] = (float(tr.run_steps(1)["total_loss"][0]),
+                      read_launches(), grads, seen)
+        del tr
+    (lk, launches, gk, seen), (lp, _, gp, seen_p) = (runs["kernel"],
+                                                    runs["plain"])
+    loss_rel = abs(lk - lp) / abs(lp)
+    expect(len(gk) == len(gp) == 1, "K2/K3 route: not one update a step")
+    plain = make_reverse_fused_mlp(model)
+
+    def plain_vjp(records):
+        """The plain op's parameter VJP on each shard's inputs and
+        cotangents, added in shard order."""
+        out = None
+        for p, a, _, cot in records:
+            q = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+            with torch.enable_grad():
+                g = torch.autograd.grad(plain(q, *a), (q["Wp"], q["bp"]),
+                                        tuple(cot))
+            out = g if out is None else tuple(x + y for x, y in zip(out, g))
+        return out
+
+    def block_errs(x, y):
+        bx, by = grad_blocks(model, *x[:2]), grad_blocks(model, *y[:2])
+        return {key: rel_err(bx[key], by[key])[1] for key in bx}
+    same_cot = plain_vjp(seen)
+    # K3 is held on the kernel step's own cotangents (phase 5's same-cot
+    # rows). Against the plain trainer's gradient the step also carries
+    # K2's rounding through the loss into the cotangents: the plain VJP
+    # alone, on the two runs' cotangents, reads 5.6e-4 of a block (PERF.md
+    # section 6), so those two are printed, not held to K3's limit
+    e_k3 = block_errs(gk[0], same_cot)
+    e_step = block_errs(gk[0], gp[0])
+    e_cot = block_errs(same_cot, plain_vjp(seen_p))
+    gblock = max(e_k3.values())
+    max_rel, rms = 0.0, 0.0
+    for p, a, (raw, graw), _ in seen:
+        raw_p, graw_p = plain(p, *a)
+        for x, y in ((raw, raw_p),) + tuple((graw[:, c], graw_p[:, c])
+                                            for c in range(3)):
+            max_rel = max(max_rel, rel_err(x, y)[1])
+            rms = max(rms, rms_err(x, y))
+    D = len(devices)
+    print(f"parallel [dp={D} K2/K3]: first step loss kernel {lk} plain {lp} "
+          f"(rel {loss_rel:.3e}, tol {TOL_LOSS_REL}); K2 on {len(seen)} "
+          f"shards: max err / max {max_rel:.3e} (tol {TOL_RAW}), norm "
+          f"{rms:.3e} (tol {TOL_RAW_RMS}); launches {launches}", flush=True)
+    for label, e in ((f"K3 on the same cotangents (tol {TOL_GRAD})", e_k3),
+                     ("the whole step (printed)", e_step),
+                     ("the cotangents alone (printed)", e_cot)):
+        print(f"parallel [dp={D} K2/K3]: gradient by block, {label}: max "
+              f"{max(e.values()):.3e}; " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in e.items()), flush=True)
+    expect(len(seen) == D, f"K2/K3 route: {len(seen)} shard calls, not {D}")
+    expect(launches["K2"] == D and launches["K3"] == D,
+           f"K2/K3 route: launches {launches} in one step")
+    expect(loss_rel <= TOL_LOSS_REL, "K2/K3 route: first losses disagree")
+    expect(max_rel <= TOL_RAW and rms <= TOL_RAW_RMS,
+           "K2/K3 route: K2 disagrees with the plain op")
+    expect(gblock <= TOL_GRAD, "K2/K3 route: K3's gradient disagrees with "
+           "the plain op")
+    return dict(loss_rel=loss_rel, k2_max_rel=max_rel, k2_rms=rms,
+                k3_grad_block_err=gblock,
+                step_grad_block_err=max(e_step.values()),
+                cot_grad_block_err=max(e_cot.values()))
+
+
+def _fleet(torch, K, rounds=6, B=10):
+    """K scenes (the shipped config, seeds 1..K, arena cut to 16 rows) on a
+    2-shard "scene" mesh of the one card, beside the lockstep stepper over
+    copies of them, round for round, and each scene's solo run."""
+    from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.parallel.mesh import make_mesh
+    from isdf_tpu_torch.parallel.multi_scene import MultiSceneStepper
+    from isdf_tpu_torch.utils.config import load_config
+    cfg = load_config(CONFIG, overrides=[FLEET_ARENA])
+
+    def scenes():
+        out = []
+        for i in range(K):
+            tr = Trainer(cfg, seed=1 + i)
+            for fid in (0, 30 + 10 * i):
+                tr.last_is_keyframe = True
+                tr.add_frame(tr.get_data([fid])[0])
+            out.append(tr)
+        return out
+    fleet, lock, solo = scenes(), scenes(), scenes()
+    mesh = make_mesh(axis="scene", devices=["cuda:0", "cuda:0"])
+    steppers = {"fleet": MultiSceneStepper(fleet, mesh=mesh),
+                "lockstep": MultiSceneStepper(lock)}
+    bills = {k: [] for k in steppers}
+    reset_launches()
+    for _ in range(rounds):
+        for k, st in steppers.items():
+            st.run_steps(B)
+            bills[k].append(st.last_bundle_dt)
+    launches = read_launches()
+    for tr in solo:
+        for _ in range(rounds):
+            tr.run_steps(B)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.params[k], b.params[k])
+               and torch.equal(a.params[k], c.params[k])
+               for a, b, c in zip(fleet, lock, solo) for k in a.params)
+    # the first round captures each scene's step; later rounds replay
+    ratios = [f / l for f, l in zip(bills["fleet"][1:], bills["lockstep"][1:])]
+    print(f"parallel [fleet K={K}, 2 blocks on one card]: bills ms per "
+          f"round fleet {[round(1e3 * b, 4) for b in bills['fleet']]}, "
+          f"lockstep {[round(1e3 * b, 4) for b in bills['lockstep']]}; "
+          f"fleet / lockstep after the first {[round(r, 4) for r in ratios]}"
+          f" (limit {FLEET_BILL_REL}); every scene its solo bits: {same}; "
+          f"launches {launches}", flush=True)
+    expect(same, f"fleet K={K}: a scene lost its solo bits")
+    expect(all(abs(r - 1.0) <= FLEET_BILL_REL for r in ratios),
+           f"fleet K={K}: a round's bill is not the lockstep stepper's")
+    expect(launches["K1-pc"] == 2 * K * rounds * B,
+           f"fleet K={K}: launches {launches}")
+    return dict(bill_ms=[1e3 * b for b in bills["fleet"]],
+                lockstep_bill_ms=[1e3 * b for b in bills["lockstep"]],
+                ratios=ratios)
+
+
+def parallel_phase(torch):
+    """Phase 14: the port's data parallelism and fleet mode on the one
+    card, at full width (synthetic.json, 27,000 points a step)."""
+    from isdf_tpu_torch.train.profile_step import profile
+    t_phase = time.perf_counter()
+    two, four = ["cuda:0"] * 2, ["cuda:0"] * 4
+    out = {}
+    # 1, 3, 4: the first steps at dp = 2 and 4 against dp = 1, then the
+    # pose burst on the dp = 2 trainer
+    ref = _first_bundle(torch, None, ["model.refine_poses=1"])
+    tr2, out["dp2_parity"] = _dp_parity(torch, "dp=2", ref, two)
+    tr2.refine_poses_step(n_frames=1, n_steps=2)
+    tr2.apply_pose_corrections()
+    s = tr2.run_steps(1)
+    burst_ms = 1e3 * tr2._last_burst_s
+    print(f"parallel [dp=2 pose burst]: {burst_ms:.3f} ms, then loss "
+          f"{s['total_loss'].tolist()}", flush=True)
+    expect(all(math.isfinite(x) for x in s["total_loss"]),
+           "dp=2: the step after the pose burst is not finite")
+    del tr2
+    _, out["dp4_parity"] = _dp_parity(torch, "dp=4", ref, four)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 1: 300 steps at dp = 2 on graphs, as shipped
+    summary, launches = run_trainer(torch, _dp_sets(two), 300, 1.0 / 300,
+                                    device=two)
+    print(f"parallel [dp=2 train]: {json.dumps(summary)}; launches "
+          f"{launches}", flush=True)
+    expect(launches["K1-pc"] == 2 * summary["steps"] and all(
+        v == 0 for k, v in launches.items() if k != "K1-pc"),
+        f"dp=2 train: launches {launches} in {summary['steps']} steps")
+    for a, b in (("loss_last", "loss_first"), ("av_l1_after", "av_l1_before"),
+                 ("sdf_mae_after", "sdf_mae_before")):
+        expect(summary[a] < summary[b], f"dp=2 train: {b} did not fall")
+    out["dp2_train"] = summary
+    # 2: the route without the fused op, K2 and K3 per shard
+    out["nonfused_first_step"] = _nonfused_first_step(torch, two)
+    summary, launches = run_trainer(torch, _dp_sets(two, [NONFUSED]), 200,
+                                    1.0 / 300, device=two)
+    print(f"parallel [dp=2 K2/K3 train]: {json.dumps(summary)}; launches "
+          f"{launches}", flush=True)
+    n = summary["steps"]
+    expect(launches["K2"] == 2 * n and launches["K3"] == 2 * n and all(
+        v == 0 for k, v in launches.items() if k not in ("K2", "K3")),
+        f"dp=2 K2/K3 train: launches {launches} in {n} steps")
+    for a, b in (("loss_last", "loss_first"), ("av_l1_after", "av_l1_before")):
+        expect(summary[a] < summary[b], f"dp=2 K2/K3 train: {b} did not fall")
+    out["nonfused_train"] = summary
+    out["nonfused_launches"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 5: fleet mode
+    for K in (2, 4):
+        out[f"fleet_K{K}"] = _fleet(torch, K)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 6: readings, graph route, profile_step as phase 10 runs it
+    out["profile"] = {}
+    for label, devices, sets in (("dp=1", None, []), ("dp=2", two, []),
+                                 ("dp=4", four, []),
+                                 ("dp=2 K2/K3", two, [NONFUSED])):
+        r = profile(_dp_sets(devices, sets), warmup=100, steps=100,
+                    devices=devices)
+        # the four costliest device kernels: (ms a step, calls a step)
+        r["top_kernels"] = dict(sorted(r.pop("by_kernel").items(),
+                                       key=lambda kv: -kv[1][0])[:4])
+        out["profile"][label] = r
+        print(f"parallel [{label}] profile: billed "
+              f"{r['billed_device_ms']:.4f} ms/step, kernels "
+              f"{r['kernels_per_step']:.1f} a step ({r['kernel_ms']:.4f} "
+              f"ms), idle {r['idle_share']:.4f} (traced), peak "
+              f"{r['peak_memory_gb']:.3f} GB, host wall "
+              f"{r['host_ms_bare']:.4f} ms/step; top kernels " + ", ".join(
+                  f"{k[:24]} {ms:.4f} ms x {n:.1f}"
+                  for k, (ms, n) in r["top_kernels"].items())
+              + f"; {card_line()}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {out['phase_s']:.1f} s wall", flush=True)
+    expect(out["phase_s"] < 90, f"phase 14: {out['phase_s']:.1f} s wall")
+    return out
+
+
 def main():
     kernels_only = "--kernels-only" in sys.argv[1:]
     graphs_only = "--graphs-only" in sys.argv[1:]
     vis_only = "--vis-only" in sys.argv[1:]
     serve_only = "--serve-only" in sys.argv[1:]
     plots_only = "--plots-only" in sys.argv[1:]
+    parallel_only = "--parallel-only" in sys.argv[1:]
     t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -3567,6 +3931,9 @@ def main():
     if plots_only:
         with tempfile.TemporaryDirectory() as work:
             plots_phase(torch, work)
+        return
+    if parallel_only:
+        print(f"parallel: {json.dumps(parallel_phase(torch))}", flush=True)
         return
 
     # ---- phase 2: kernels vs plain versions ----
@@ -3663,16 +4030,26 @@ def main():
     # ---- phase 13: the plot kit, the figures and the debug oracles ----
     with tempfile.TemporaryDirectory() as work:
         readings["plots"] = plots_phase(torch, work)
+    # ---- phase 14: data parallelism over a ray mesh (K1 per shard; K2
+    # and K3 on the trainer's route without the fused op) and fleet mode,
+    # on shards of the one card ----
+    readings["parallel"] = parallel_phase(torch)
+    # K2 and K3 on the main path: the trainer's launches, no longer the op
+    # path's
+    for name in ("K2", "K3"):
+        by_name[name]["launches"] = readings["parallel"][
+            "nonfused_launches"][name]
     readings["wall_s"] = time.perf_counter() - t_main
     print(f"phase 9: {readings['multi']['wall_s']:.1f} s wall; phase 10: "
           f"{readings['graphs']['wall_s']:.1f} s; phase 11: "
           f"{readings['vis']['phase_s']:.1f} s; phase 12: "
           f"{readings['serve']['phase_s']:.1f} s; phase 13: "
-          f"{readings['plots']['phase_s']:.1f} s; the script to here: "
+          f"{readings['plots']['phase_s']:.1f} s; phase 14: "
+          f"{readings['parallel']['phase_s']:.1f} s; the script to here: "
           f"{readings['wall_s']:.1f} s wall", flush=True)
     print(f"readings: {json.dumps(readings)}", flush=True)
 
-    # ---- phase 14: report ----
+    # ---- phase 15: report ----
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

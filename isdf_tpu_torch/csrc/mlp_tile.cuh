@@ -1223,13 +1223,22 @@ static inline void allow_smem(K kernel, int bytes) {
                        (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// Whether this is the first call on the current device for the flags in
+// ``seen`` (a bit a device): a kernel's attributes are set per device, so
+// the shards of a mesh across cards each set them once.
+static inline bool first_on_device(unsigned long long *seen) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*seen & bit) return false;
+  *seen |= bit;
+  return true;
+}
+
 // Phases 2 and 3 on stream st; returns the cudaGetLastError() code.
 static inline int launch_dw_reduce(const Args &a, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    allow_smem(k_dw, SMEM_DW);
-    attr_set = true;
-  }
+  static unsigned long long attr_set = 0;
+  if (first_on_device(&attr_set)) allow_smem(k_dw, SMEM_DW);
   const int n_tiles = a.NP / TM;
   dim3 gdw((HID / DW_T) * (HID / DW_T), a.L, a.S);  // nh + 1 == L GEMMs
   k_dw<<<gdw, NTHR, SMEM_DW, st>>>(a);

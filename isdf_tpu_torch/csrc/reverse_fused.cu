@@ -92,12 +92,11 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
 }
 
 static void set_smem_once() {
-  static bool attr_set = false;
-  if (!attr_set) {
+  static unsigned long long attr_set = 0;
+  if (first_on_device(&attr_set)) {
     allow_smem(k_rf_forward, SMEM_DYN);
     allow_smem(k_rf_vjp_tile, SMEM_DYN);
     allow_smem(k_dw, SMEM_DW);
-    attr_set = true;
   }
 }
 

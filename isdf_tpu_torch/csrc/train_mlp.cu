@@ -263,13 +263,12 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
 }
 
 static void set_attrs_once() {
-  static bool attr_set = false;
-  if (!attr_set) {
+  static unsigned long long attr_set = 0;
+  if (first_on_device(&attr_set)) {
     allow_smem(k_train_tile<MODE_PC>, SMEM_DYN);
     allow_smem(k_train_tile<MODE_RAY>, SMEM_DYN);
     allow_smem(k_train_tile<MODE_STREAM>, SMEM_DYN);
     allow_smem(k_dw, SMEM_DW);
-    attr_set = true;
   }
 }
 

@@ -46,5 +46,11 @@ class FrameStore:
     def frame_ids(self) -> np.ndarray:
         return np.array([f.frame_id for f in self.frames], np.int64)
 
+    def depth_batch_np(self) -> np.ndarray:
+        return np.stack([f.depth for f in self.frames])
+
     def T_WC_batch_np(self) -> np.ndarray:
         return np.stack([f.T_WC for f in self.frames])
+
+    def im_batch_np(self) -> np.ndarray:
+        return np.stack([f.image for f in self.frames])

@@ -48,6 +48,20 @@ def make_buffer(capacity: int, H: int, W: int, with_normals: bool = True,
         count=0)
 
 
+def reset(buf: FrameBuffer) -> FrameBuffer:
+    """Empty the arena in place, as make_buffer leaves a new one: the
+    tensors keep their storage, so a captured step reads the emptied rows
+    (a new arena would be a second one in memory until the graphs drop
+    the first)."""
+    for a in (buf.depth, buf.T_WC, buf.normals, buf.frame_avg_loss,
+              buf.loss_approx):
+        if a is not None:
+            a.zero_()
+    buf.frame_id.fill_(-1)
+    buf.count = 0
+    return buf
+
+
 # rows moved at a time by an eviction (a normals row of a 1200x680 frame
 # is 9.8 MB)
 _EVICT_CHUNK = 16

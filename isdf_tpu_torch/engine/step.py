@@ -47,6 +47,21 @@ arena's fill count from its row of a small table on the device
 refinement tail's and, for an arena smaller than the window, the fill
 count) are its key.
 
+``mesh`` (parallel/mesh.py, a "dp" axis; isdf_tpu's ``build_step_functions(
+mesh=)``) shards the op's per-point work over the ray axis. Window
+selection, sampling, noise, the surface set and the bounds stay global on
+the mesh's first device, drawn exactly as without a mesh; then the fused
+op runs once per shard on that shard's contiguous rays (the global surface
+set, normaliser and weights given to every shard) and its sums and
+gradients are added in shard order (isdf_tpu's shard_map and psum,
+step.py:285-305). Without the fused op (a mesh and ``pe_in_kernel: false``,
+as isdf_tpu gates it) the spatial forward runs once per shard, on the card
+the reverse-fused op (K2 forward, K3 backward), and the losses on the whole
+batch; each shard's parameter gradient comes from leaves of its own and
+the gradients are added in shard order. The arena, parameters and
+optimiser state stay on the first device. So a mesh of N shards equals no
+mesh up to the order of the gradient sums.
+
 On the card a bundle is one captured step replayed (isdf_tpu runs a bundle
 as one compiled ``lax.scan``): each key's first step runs eagerly, then is
 captured as a CUDA graph (utils/graphs.py), and every later step of that
@@ -54,12 +69,15 @@ key seeds the generator, copies its table row into the graph's input and
 replays; the replay draws what the eager step draws. The graphs read the
 parameters, moments and arena at the addresses they were captured with, so
 replacing any of those tensors (a checkpoint load) drops them. On the CPU,
-or with ``StepFunctions(eager=True)`` (the card's yardstick in tests and
-chip_smoke.py), a bundle is a plain loop of steps.
+with ``StepFunctions(eager=True)`` (the card's yardstick in tests and
+chip_smoke.py), or on a mesh across several cards (a capture records one
+card's stream), a bundle is a plain loop of steps. A mesh whose shards
+share one card is captured as no mesh is.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Dict
 
 import torch
@@ -74,6 +92,7 @@ from isdf_tpu_torch.ops import bounds as B
 from isdf_tpu_torch.ops import losses as L
 from isdf_tpu_torch.ops import render as R
 from isdf_tpu_torch.ops import sampling as S
+from isdf_tpu_torch.parallel import mesh as PM
 from isdf_tpu_torch.utils.config import Config
 
 _MASK64 = (1 << 64) - 1
@@ -141,14 +160,15 @@ class StepFunctions:
     """The engine specialised to a config, a model and a camera."""
 
     def __init__(self, cfg: Config, model: M.SDFModel, H: int, W: int,
-                 dirs_C_img, device, eager: bool = False):
+                 dirs_C_img, device, eager: bool = False,
+                 mesh: PM.Mesh = None):
         self.cfg, self.model, self.H, self.W = cfg, model, H, W
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.first != PM.Mesh([device]).first:
+            raise ValueError(f"the step runs on {self.device}, the mesh's "
+                             f"first device is {mesh.first}")
         self.dirs = dirs_C_img.to(self.device)
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                "data parallelism (tpu.data_parallel > 1) is not ported to "
-                "isdf_tpu_torch yet")
         if cfg.grad_mode not in ("pallas", "reverse_fused", "auto"):
             raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
         cuda = self.device.type == "cuda"
@@ -157,7 +177,7 @@ class StepFunctions:
         # (a data-parallel mesh needs pe_in_kernel); its kernel needs hidden
         # 256, its plain version runs at any width
         fused = (cfg.grad_mode == "pallas" and self.do_sdf_grad
-                 and (cfg.data_parallel == 1 or cfg.pe_in_kernel)
+                 and (mesh is None or cfg.pe_in_kernel)
                  and (not cuda or model.hidden_size == HID)
                  and not model.gauss_embed)
         self.pc_in_kernel = (fused and cfg.pc_in_kernel and cfg.pe_in_kernel
@@ -192,6 +212,12 @@ class StepFunctions:
                                       b1=0.9, b2=0.999, eps=1e-8)
         # the graph route on the card; ``eager`` keeps the plain loop there
         self.eager = eager or not cuda
+        if cuda and mesh is not None and len(mesh.distinct) > 1:
+            if not self.eager:
+                print(f"isdf_tpu_torch: the step across {len(mesh.distinct)}"
+                      " cards runs eagerly (a CUDA graph captures one card's "
+                      "stream)", file=sys.stderr, flush=True)
+            self.eager = True
         self.gen = torch.Generator(device=self.device)
         self.graphs = None          # utils/graphs.GraphRunner, at first use
         self._captured = {}         # key -> (Captured, input row, out row)
@@ -232,9 +258,10 @@ class StepFunctions:
             normals_pt = normals[:, None, :].expand(R_, S_, 3).reshape(N, 3)
             is_surf = torch.zeros((R_, S_), device=pc.device)
             is_surf[:, 0] = 1.0
-            sums, ploss, grads = self.train_op(
-                params, transform, flat, surf.contiguous(),
-                sv.float().contiguous(), zd.contiguous(),
+            # the surface set is global: every shard gets all of it
+            sums, ploss, grads = self._shard_mapped(
+                self.train_op, {2, 5, 6, 7, 8, 9}, params, transform, flat,
+                surf.contiguous(), sv.float().contiguous(), zd.contiguous(),
                 normals_pt.contiguous(), is_surf.reshape(-1), vflat, noise,
                 invC)
         else:
@@ -254,8 +281,9 @@ class StepFunctions:
             rest = (bnd.bounds.reshape(-1).contiguous(), vflat, noise,
                     gt.contiguous(), invC)
             if cfg.pe_in_kernel:
-                sums, ploss, grads = self.train_op(params, transform, flat,
-                                                   *rest)
+                sums, ploss, grads = self._shard_mapped(
+                    self.train_op, {2, 3, 4, 5, 6}, params, transform, flat,
+                    *rest)
             else:
                 pe, _, dxs, dproj2 = M._pe_factored(flat, self.model,
                                                     transform)
@@ -268,9 +296,49 @@ class StepFunctions:
             scalars["eikonal_loss"] = sums[3] * invC
         return scalars, ploss.reshape(R_, S_), grads
 
+    def _shard_mapped(self, op, sharded, *args):
+        """``op``(*args) -> (sums, ploss, grads), on a mesh once per shard
+        (isdf_tpu step.py:285-305): the args at the positions in
+        ``sharded`` cut into the shards' contiguous rows, the others
+        replicated; sums and gradients added in shard order, ploss
+        concatenated in ray order, all on the first device."""
+        mesh = self.mesh
+        if mesh is None:
+            return op(*args)
+        shards = PM.split(mesh, *[args[i] for i in sorted(sharded)])
+        reps = {i: PM.replicate(mesh, a) for i, a in enumerate(args)
+                if i not in sharded}
+        outs = []
+        for k, dev in enumerate(mesh.devices):
+            cut = dict(zip(sorted(sharded), shards[k]))
+            with PM.on(dev):
+                outs.append(op(*[cut[i] if i in cut else reps[i][dev]
+                                 for i in range(len(args))]))
+        sums = PM.fixed_sum(mesh, [o[0] for o in outs])
+        ploss = torch.cat([o[1].to(mesh.first) for o in outs])
+        grads = tuple(PM.fixed_sum(mesh, [o[2][j] for o in outs])
+                      for j in range(len(outs[0][2])))
+        return sums, ploss, grads
+
     def value_and_spatial_grad(self, params, pc, transform):
         """(sdf [R, S], d sdf / dx [R, S, 3]) differentiable in params
-        (isdf_tpu step.py:195-226)."""
+        (isdf_tpu step.py:195-226). On a mesh ``params`` is a list of one
+        dict a shard (shard_leaves): shard k's rays go through the forward
+        on its device with its own dict."""
+        mesh = self.mesh
+        if mesh is None:
+            return self._value_and_spatial_grad(params, pc, transform)
+        trans = PM.replicate(mesh, transform)
+        outs = []
+        for (pc_k,), p_k, dev in zip(PM.split(mesh, pc), params,
+                                     mesh.devices):
+            with PM.on(dev):
+                outs.append(self._value_and_spatial_grad(p_k, pc_k,
+                                                         trans[dev]))
+        return tuple(torch.cat([o[j].to(mesh.first) for o in outs])
+                     for j in range(2))
+
+    def _value_and_spatial_grad(self, params, pc, transform):
         model = self.model
         if self.rf_op is not None:
             R_, S_, _ = pc.shape
@@ -316,16 +384,36 @@ class StepFunctions:
                                surf=None, sv=None):
         """ray_batch_loss and its gradient in the packed planes (isdf_tpu
         step.py:428-436) -> (scalars, ploss [R, S], (dW, db[, dB])), dB
-        the Gaussian embedding's where the model has one."""
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        the Gaussian embedding's where the model has one. On a mesh each
+        shard differentiates leaves of its own (shard_leaves) and the
+        shards' gradients are added in shard order."""
+        leaves = self.shard_leaves(params)
+        keys = [k for k in PARAM_KEYS if k in params]
         with torch.enable_grad():
-            out = self.ray_batch_loss(p, transform, pc, z_vals, dirs_C,
-                                      dirs_W, depth, normals, valid, noise,
-                                      surf=surf, sv=sv)
-            grads = torch.autograd.grad(
-                out.total, [p[k] for k in PARAM_KEYS if k in p])
+            out = self.ray_batch_loss(
+                leaves if self.mesh is not None else leaves[0], transform,
+                pc, z_vals, dirs_C, dirs_W, depth, normals, valid, noise,
+                surf=surf, sv=sv)
+            flat = torch.autograd.grad(out.total,
+                                       [p[k] for p in leaves for k in keys])
+        grads = tuple(flat[j::len(keys)] for j in range(len(keys)))
+        if self.mesh is not None:
+            grads = tuple(PM.fixed_sum(self.mesh, g) for g in grads)
+        else:
+            grads = tuple(g[0] for g in grads)
         scalars = {k: v.detach() for k, v in out.scalars.items()}
         return scalars, out.mat.detach(), grads
+
+    def shard_leaves(self, params):
+        """One dict of autograd leaves a shard (one without a mesh): views
+        of the parameters on each shard's device, copied once per
+        distinct device."""
+        if self.mesh is None:
+            return [{k: v.detach().requires_grad_(True)
+                     for k, v in params.items()}]
+        reps = PM.replicate(self.mesh, params)
+        return [{k: v.detach().requires_grad_(True)
+                 for k, v in reps[d].items()} for d in self.mesh.devices]
 
     def update(self, params, opt_state, buf: FrameBuffer, grads, ploss,
                idxs, slot_valid, ib, ih, iw, valid, lr_scale):

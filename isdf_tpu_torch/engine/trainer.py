@@ -24,9 +24,16 @@ fixed-point (voxblox-comparable), object and trajectory evals, checkpoints
 (utils/checkpoint.py, isdf_tpu's .npz format) and pose refinement
 (engine/pose.py, ``model.refine_poses``) run as in isdf_tpu, and so do the
 scene frame from ``gt_sdf_dir/mesh.obj``, the GT SDF grid from
-``gt_sdf_dir/1cm`` and the SDF slices (vis/slices.py). Not ported yet: the
-viewer and data parallelism; a config that asks for data parallelism
-raises.
+``gt_sdf_dir/1cm`` and the SDF slices (vis/slices.py).
+
+Data parallelism (``tpu.data_parallel`` = N > 1, isdf_tpu trainer.py:131-
+160): the step's per-point work is sharded over a "dp" mesh of N devices
+(parallel/mesh.py, engine/step.py). ``device`` names the mesh: None or
+"cuda", the first N cards (too few raise); "cpu", N shards on the CPU; a
+sequence of N devices, that mesh, repeats allowed (N shards on one card).
+``window_size * n_rays`` must divide by N. The parameters, optimiser
+state, arena, frozen copy, evals, keyframe test, meshing and pose bursts
+live on the mesh's first device; ``mesh`` is None exactly when N = 1.
 """
 
 from __future__ import annotations
@@ -65,22 +72,44 @@ def pinned_dt(n_steps: int, measured: float, per_step_s: float,
     return max(dt, 1e-5)
 
 
-def check_supported(cfg: Config):
-    """Raise on the parts of a config this port does not run yet."""
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "not ported to isdf_tpu_torch yet: tpu.data_parallel > 1")
+def dp_mesh(cfg: Config, device):
+    """The "dp" mesh of tpu.data_parallel (None at 1) on ``device`` (see
+    the module docstring); raises as isdf_tpu does (trainer.py:135-146)."""
+    n = cfg.data_parallel
+    many = isinstance(device, (list, tuple))
+    if n <= 1 and not (many and len(device) > 1):
+        return None
+    from isdf_tpu_torch.parallel.mesh import make_mesh
+    if many:
+        mesh = make_mesh(n, devices=[resolve_device(d) for d in device])
+    elif torch.device("cuda" if device is None else device).type == "cpu":
+        mesh = make_mesh(n, devices=["cpu"] * n)
+    else:
+        n_av = torch.cuda.device_count()
+        if n_av < n:
+            raise RuntimeError(f"tpu.data_parallel={n} but only {n_av} "
+                               "device(s) visible")
+        mesh = make_mesh(n)
+    if (cfg.window_size * cfg.n_rays) % n != 0:
+        raise ValueError(
+            "window_size * n_rays must divide tpu.data_parallel "
+            f"({cfg.window_size * cfg.n_rays} rays over {n} devices)")
+    return mesh
 
 
 class Trainer:
     def __init__(self, config, dataset=None, incremental: bool = True,
                  grid_dim: int = 200, seed: int = 1, device=None,
                  eager: bool = False):
-        self.device = resolve_device(device)
         self.cfg: Config = (load_config(config) if isinstance(config, str)
                             else config)
         cfg = self.cfg
-        check_supported(cfg)
+        self.mesh = dp_mesh(cfg, device)
+        if self.mesh is not None:
+            device = self.mesh.first
+        elif isinstance(device, (list, tuple)):
+            device = device[0]
+        self.device = resolve_device(device)
         self.incremental = incremental
         self.grid_dim = grid_dim
         self.chunk_size = 262144
@@ -155,7 +184,8 @@ class Trainer:
         # eager: the plain loops on the card too, steps and pose bursts
         # (the yardstick of the CUDA graphs, engine/step.py)
         self.fns = StepFunctions(cfg, self.model, self.H, self.W,
-                                 self.dirs_C, self.device, eager=eager)
+                                 self.dirs_C, self.device, eager=eager,
+                                 mesh=self.mesh)
         # build the step's kernel libraries now, outside the simulated clock
         nvcc.load_all(self.fns.kernel_sources)
         self.opt_state = fused_adamw.init_state(self.params)
@@ -412,7 +442,8 @@ class Trainer:
     def run_steps(self, n_steps: int) -> Dict[str, np.ndarray]:
         """Run ``n_steps`` optimisation steps; advance the sim clock by the
         bundle's device time (scaled by 1/frac_time_perception)."""
-        clock = BundleClock(self.device)
+        clock = BundleClock(self.device, others=(
+            self.mesh.distinct[1:] if self.mesh is not None else ()))
         scalars = self.fns.train_bundle(
             self.params, self.opt_state, self.buffer, self.transform_dev,
             self._bundle_seed, float(self.noise_std), n_steps=n_steps,
@@ -634,6 +665,26 @@ class Trainer:
         """SDF slice PNGs (vis/slices.py::write_slices)."""
         from isdf_tpu_torch.vis.slices import write_slices
         return write_slices(self, save_path, prefix=prefix, **kw)
+
+    def frames_vis(self, reduce_factor: int = 6) -> np.ndarray:
+        """The keyframe strip image (reference draw.py:139-150)."""
+        from isdf_tpu_torch.vis.views import keyframe_strip
+        return keyframe_strip(self, reduce_factor=reduce_factor)
+
+    def latest_frame_vis(self, reduce_factor: int = 8) -> np.ndarray:
+        """The 2x2 live panel (reference trainer.py:1055-1150)."""
+        from isdf_tpu_torch.vis.views import latest_frame_vis
+        return latest_frame_vis(self, reduce_factor=reduce_factor)
+
+    def clear_keyframes(self):
+        """Empty the keyframe store and arena (reference trainer.py:676-
+        679). The arena is emptied in place (engine/buffer.py::reset), so
+        the step's graphs stay valid on it."""
+        self.frames = FrameStore()
+        BUF.reset(self.buffer)
+        self.last_is_keyframe = False
+        self.steps_since_frame = 0
+        self.optim_frames = 0
 
     def save_checkpoint(self, path: str, step: int = 0):
         from isdf_tpu_torch.utils import checkpoint as CK

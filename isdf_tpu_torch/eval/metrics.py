@@ -4,6 +4,8 @@ counts, off the training path."""
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 from scipy.spatial import cKDTree as KDTree
 
@@ -61,3 +63,15 @@ def aligned_ate(t1, t2):
     """RMS of the distances between two aligned trajectories' positions."""
     ate = np.linalg.norm(np.asarray(t1) - np.asarray(t2), axis=1)
     return float(np.sqrt((ate * ate).sum() / len(ate)))
+
+
+def start_timing():
+    """A host wall-clock mark (reference metrics.py:13-38 times with CUDA
+    events; the trainer's bundles are timed so, by utils/profiling.py::
+    BundleClock)."""
+    return time.perf_counter()
+
+
+def end_timing(start) -> float:
+    """Milliseconds since ``start``."""
+    return (time.perf_counter() - start) * 1000.0

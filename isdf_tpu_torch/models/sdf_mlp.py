@@ -130,6 +130,14 @@ def unpack(params: Params, model: SDFModel):
     return out
 
 
+def param_count(params: Params, model: SDFModel) -> int:
+    """Trained entries of the map: the layer weights and biases (not the
+    packed planes' padding), and B with the Gaussian embedding; isdf_tpu's
+    count of its parameter pytree."""
+    n = sum(w.numel() + b.numel() for w, b in unpack(params, model))
+    return n + (params["B"].numel() if "B" in params else 0)
+
+
 def init_params(gen: torch.Generator, model: SDFModel,
                 device="cpu") -> Params:
     """Xavier-normal weights, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) biases,

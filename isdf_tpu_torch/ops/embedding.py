@@ -47,6 +47,11 @@ def n_freqs(min_deg: int, max_deg: int) -> int:
     return max_deg - min_deg + 1
 
 
+def embedding_size(min_deg: int = 0, max_deg: int = 5) -> int:
+    """Width of the icosahedron PE: 2 * 21 * n_freqs + 3."""
+    return 2 * ICOSAHEDRON_DIRS.shape[0] * n_freqs(min_deg, max_deg) + 3
+
+
 def bands(min_deg: int, max_deg: int) -> torch.Tensor:
     """2^k for k = min_deg..max_deg, float32 (on the CPU)."""
     nf = n_freqs(min_deg, max_deg)

@@ -141,6 +141,39 @@ def look_at(eye, target=None, up=None):
     return np.vstack((x_axis, y_axis, z_axis)).T, eye
 
 
+def rotation_about(axis, deg):
+    """4x4 rotation about an axis by ``deg`` degrees (numpy, Rodrigues)."""
+    a = np.asarray(axis, float)
+    a = a / np.linalg.norm(a)
+    th = np.deg2rad(deg)
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+    return T
+
+
+def to_trimesh(transform=None):
+    """The reference viewers' camera convention (transform.py:104-109):
+    -180 degrees about x, applied on the right."""
+    t = np.eye(4) if transform is None else np.asarray(transform)
+    return t @ rotation_about([1, 0, 0], -180)
+
+
+def to_replica(transform=None):
+    """Replica's convention: 180 degrees about z (transform.py:112-117)."""
+    t = np.eye(4) if transform is None else np.asarray(transform)
+    return t @ rotation_about([0, 0, 1], 180)
+
+
+def spline_interpolation(keypoints, n_points: int):
+    """A smooth path of ``n_points`` through the keypoints [K, D], an
+    interpolating B-spline (transform.py:120-124) -> [n_points, D]."""
+    from scipy import interpolate
+    tck, _ = interpolate.splprep(np.asarray(keypoints, float).T, s=0)
+    pts = interpolate.splev(np.linspace(0, 1, n_points), tck)
+    return np.array(pts, dtype=np.float64).T
+
+
 def pc_bounds(pc):
     """Axis-aligned extents and centroid of a pointcloud [N, 3] (numpy)."""
     mins = np.min(pc, axis=0)

@@ -27,9 +27,18 @@ port's round is a loop over the scenes: each trainer's state is updated in
 place, a scene with no active steps launches nothing, and nothing is
 stacked or copied, so the card holds exactly the K trainers' own state.
 Device time is read from CUDA events around the whole round (isdf_tpu's
-differential calibration of a fetch-synced wall has no counterpart). Fleet
-mode (the scene axis sharded over a ``mesh=`` of devices) needs several
-cards and is not ported.
+differential calibration of a fetch-synced wall has no counterpart).
+
+Fleet mode (``mesh=``, a parallel/mesh.py mesh with a "scene" axis of D
+shard devices; isdf_tpu multi_scene.py:60-71, 124-157, 214-250): K scenes,
+K divisible by D, scene j in block j // (K / D), its trainer's state on
+that block's device (as ``P("scene")`` places it). Each card steps its
+scenes in order on its own stream, so distinct cards run concurrently, and
+the round is timed once, from its start until every card's stream has
+joined the first's: on distinct cards the slowest card's time, which
+isdf_tpu's docstring bills, and on blocks that share a card the sum of
+their work, the honest bill of one card. Scenes are independent, so a
+scene keeps its solo bits in fleet mode too.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from isdf_tpu_torch.engine.trainer import Trainer, pinned_dt
+from isdf_tpu_torch.parallel.mesh import Mesh, block_devices, on
 from isdf_tpu_torch.utils.profiling import BundleClock
 
 # the config fields of isdf_tpu's compiled step body (its step.py::
@@ -66,7 +76,8 @@ def _hot_signature(trainer: Trainer):
 
 
 class MultiSceneStepper:
-    """Lockstep stepping of K Trainers (scenes) on one card.
+    """Lockstep stepping of K Trainers (scenes) on one card, or over the
+    "scene" axis of a mesh (fleet mode, ``mesh=``).
 
     ``stepper.run_steps(n)`` advances every scene by its own number of
     steps and does each trainer's run_steps bookkeeping (clock billing,
@@ -76,11 +87,6 @@ class MultiSceneStepper:
     def __init__(self, trainers: Sequence[Trainer], mesh=None):
         if len(trainers) < 1:
             raise ValueError("need at least one trainer")
-        if mesh is not None:
-            raise NotImplementedError(
-                "fleet mode (mesh=, the scenes sharded over several "
-                "devices) needs a multi-card host and is not ported to "
-                "isdf_tpu_torch")
         t0 = trainers[0]
         sig0 = _hot_signature(t0)
         for t in trainers[1:]:
@@ -90,13 +96,28 @@ class MultiSceneStepper:
                 raise ValueError(
                     "scenes must share the step's configuration; "
                     f"differing fields: {diff or ['camera H/W']}")
-        if any(t.cfg.data_parallel > 1 for t in trainers):
+        # as isdf_tpu (multi_scene.py:135-137): one scene may be data
+        # parallel (train/profile_step.py steps it so), several may not
+        if len(trainers) > 1 and any(t.mesh is not None for t in trainers):
             raise ValueError("multi-scene with data parallelism is not "
                              "supported")
-        if len({t.device for t in trainers}) != 1:
-            raise ValueError("the scenes must share one device")
         self.trainers: List[Trainer] = list(trainers)
         self.K = len(self.trainers)
+        self.mesh = mesh
+        # the other cards a round's bill must join (utils/profiling.py)
+        self._others = (t0.mesh.distinct[1:] if t0.mesh is not None
+                        else ())
+        if mesh is not None:
+            if mesh.axis != "scene":
+                raise ValueError("fleet mesh needs a 'scene' axis")
+            blocks = block_devices(mesh, self.K)
+            for j, (t, d) in enumerate(zip(self.trainers, blocks)):
+                if Mesh([t.device]).first != d:
+                    raise ValueError(f"scene {j} lives on {t.device}; its "
+                                     f"block's device is {d}")
+            self._others = mesh.distinct[1:]
+        elif len({t.device for t in trainers}) != 1:
+            raise ValueError("the scenes must share one device")
         self.device = t0.device
         # > 0: bill this many seconds per step of a round instead of its
         # measured time, capped by it unless _bill_exact (pinned_dt)
@@ -121,23 +142,27 @@ class MultiSceneStepper:
         if n_actives is None:
             n_actives = [n_steps] * self.K
         n_actives = [int(min(max(n, 0), n_steps)) for n in n_actives]
-        clock = BundleClock(self.device)
+        clock = BundleClock(self.device, others=self._others)
         outs = {}
         for i, (tr, na) in enumerate(zip(self.trainers, n_actives)):
             if na == 0:
                 continue
-            outs[i] = tr.fns.train_bundle(
-                tr.params, tr.opt_state, tr.buffer, tr.transform_dev,
-                tr._bundle_seed, float(tr.noise_std), n_steps=na,
-                lr_scale=float(tr.lr_scale), tail=bool(tr.tail_mode),
-                step0=tr.steps_taken)
+            # in fleet mode on the scene's card, so its launches go to
+            # that card's stream
+            with on(tr.device):
+                outs[i] = tr.fns.train_bundle(
+                    tr.params, tr.opt_state, tr.buffer, tr.transform_dev,
+                    tr._bundle_seed, float(tr.noise_std), n_steps=na,
+                    lr_scale=float(tr.lr_scale), tail=bool(tr.tail_mode),
+                    step0=tr.steps_taken)
         clock.stop()
         if outs:
             self._names = sorted(next(iter(outs.values())))
         names = self._names
         # one fetch of every scene's scalars: the round's sync
-        flat = (torch.cat([outs[i][k] for i in sorted(outs) for k in names])
-                .cpu().numpy() if outs and names else np.zeros(0))
+        flat = (torch.cat([outs[i][k].to(self.device) for i in sorted(outs)
+                           for k in names]).cpu().numpy()
+                if outs and names else np.zeros(0))
         measured = clock.seconds()
         self.measured_s += measured
         dt = pinned_dt(n_steps, measured, self._per_step_device_s,

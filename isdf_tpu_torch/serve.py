@@ -55,13 +55,6 @@ from isdf_tpu_torch.utils.graphs import CAPTURE_LOCK
 MAX_POINTS = 1 << 20
 
 
-def param_count(params, model: M.SDFModel) -> int:
-    """Trained entries of the map: the layer weights and biases (not the
-    packed planes' padding), and B with the Gaussian embedding."""
-    n = sum(w.numel() + b.numel() for w, b in M.unpack(params, model))
-    return n + (params["B"].numel() if "B" in params else 0)
-
-
 def _collision(sdf, margin: float) -> Dict[str, Any]:
     below = sdf <= margin
     return {"min_sdf": float(sdf.min()) if sdf.size else float("inf"),
@@ -228,7 +221,7 @@ class SDFQueryEngine:
 
     def info(self) -> Dict[str, Any]:
         return {"ok": True,
-                "param_count": param_count(self.params, self.model),
+                "param_count": M.param_count(self.params, self.model),
                 "embedding_size": self.model.embedding_size,
                 "hidden_size": self.model.hidden_size,
                 "chunk_size": self.chunk_size,

@@ -2,12 +2,14 @@
 """Where the time of a training step goes on the card.
 
     python -m isdf_tpu_torch.train.profile_step [--scenes K] \
-        [SECTION.KEY=VALUE ...]
+        [--devices DEV,DEV,...] [SECTION.KEY=VALUE ...]
 
 Steps K copies of train/configs/synthetic.json with the given config
 overrides, e.g. tpu.pe_in_kernel=false tpu.use_pallas=true, scene i with
 seed 1 + i, in lockstep through parallel/multi_scene.py (K = 1: one
-trainer, the same launches as Trainer.run_steps). The simulated clock is
+trainer, the same launches as Trainer.run_steps). ``--devices`` gives each
+trainer the mesh of tpu.data_parallel (``cuda:0,cuda:0`` with
+tpu.data_parallel=2: two shards on one card). The simulated clock is
 pinned at 1/300 s per step. After 300 steps of multi_scene_loop it times
 20 more rounds of 10 steps per scene (MultiSceneStepper.run_steps) twice:
 once bare, once under torch.profiler tracing the card only. Prints, per
@@ -59,12 +61,14 @@ def busy_us(intervals):
 
 
 def profile(overrides=(), scenes: int = 1, eager: bool = False,
-            warmup: int = WARMUP, steps: int = STEPS, bundle: int = BUNDLE):
+            warmup: int = WARMUP, steps: int = STEPS, bundle: int = BUNDLE,
+            devices=None):
     """Readings of K = ``scenes`` trainers stepped in lockstep, ``steps``
     steps per scene timed after ``warmup``: host wall (bare and traced),
     billed device time, kernel time, kernels and graph replays per
     scene-step, the idle share of the traced window, peak memory, the
-    captures and their seconds, and the kernels by device time (a dict)."""
+    captures and their seconds, and the kernels by device time (a dict).
+    ``devices``: each trainer's device argument (a list: its dp mesh)."""
     from torch.profiler import ProfilerActivity, profile as trace
 
     from isdf_tpu_torch.engine.trainer import Trainer
@@ -75,7 +79,8 @@ def profile(overrides=(), scenes: int = 1, eager: bool = False,
     K = scenes
     cfg = load_config(CONFIG, overrides=list(overrides) or None)
     torch.cuda.reset_peak_memory_stats()
-    trainers = [Trainer(cfg, seed=1 + i, eager=eager) for i in range(K)]
+    trainers = [Trainer(cfg, seed=1 + i, eager=eager, device=devices)
+                for i in range(K)]
     stepper = MultiSceneStepper(trainers)
     stepper._per_step_device_s, stepper._bill_exact = 1.0 / 300, True
     multi_scene_loop(trainers, max_steps=warmup, stepper=stepper)
@@ -132,9 +137,15 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--scenes", type=int, default=1,
                         help="copies of the config stepped in lockstep")
+    parser.add_argument("--devices", type=str, default=None,
+                        metavar="DEV,DEV,...",
+                        help="each trainer's device, or its data-parallel "
+                             "mesh (with tpu.data_parallel)")
     parser.add_argument("overrides", nargs="*", metavar="SECTION.KEY=VALUE")
     args = parser.parse_args(argv)
-    r = profile(args.overrides, scenes=args.scenes)
+    from isdf_tpu_torch.parallel.mesh import parse_devices
+    r = profile(args.overrides, scenes=args.scenes,
+                devices=parse_devices(args.devices))
     n, rounds = r["scene_steps"], STEPS // BUNDLE
     K = r["scenes"]
     print(f"card: {r['card']}; scenes: {K}; overrides: {args.overrides}; "

@@ -5,9 +5,13 @@
         [--save_path DIR | --save] [--max_steps N] [--max_time_s T] \
         [--seed S] [--grid_dim D] [--per_step] [--trace DIR] \
         [--sim_dt DT] [--load_checkpoint PATH] [--set SECTION.KEY=VALUE] \
-        [--device cuda|cpu]
+        [--device cuda|cpu|DEV,DEV,...]
 
-Runs on the CUDA device unless ``--device cpu``. ``-ni`` is the batch
+Runs on the CUDA device unless ``--device cpu``. With
+``--set tpu.data_parallel=N`` the step is sharded over N devices
+(engine/trainer.py): the first N cards, N CPU shards with ``--device cpu``,
+or the N devices of a comma-separated list (``cuda:0,cuda:0``: two shards
+on one card). ``-ni`` is the batch
 (non-incremental) mode, ``--per_step`` the reference's one-step loop,
 ``--trace`` writes a torch.profiler trace of the run. With eval.do_eval the
 reference protocol scores the visible region against the GT SDF into
@@ -59,11 +63,13 @@ def main(argv=None):
                         metavar="SECTION.KEY=VALUE",
                         help="override a config entry (repeatable)")
     parser.add_argument("--device", type=str, default=None,
-                        help="cuda (default) or cpu")
+                        help="cuda (default), cpu, or a comma-separated "
+                             "list, the tpu.data_parallel mesh")
     args = parser.parse_args(argv)
 
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.parallel.mesh import parse_devices
     from isdf_tpu_torch.utils.config import load_config
     from isdf_tpu_torch.utils.profiling import device_trace
 
@@ -80,7 +86,7 @@ def main(argv=None):
 
     trainer = Trainer(cfg, incremental=args.incremental,
                       grid_dim=args.grid_dim, seed=args.seed,
-                      device=args.device)
+                      device=parse_devices(args.device))
     if args.sim_dt is not None:
         trainer._per_step_device_s = args.sim_dt
         trainer._bill_exact = True

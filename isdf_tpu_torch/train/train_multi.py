@@ -5,7 +5,7 @@ scenes on one card.
     python -m isdf_tpu_torch.train.train_multi \
         --config sceneA.json --config sceneB.json [--save_path DIR] \
         [--max_steps N] [--max_time_s T] [--seed S] [--extra_opt_steps N] \
-        [--set SECTION.KEY=VALUE] [--device cuda|cpu]
+        [--set SECTION.KEY=VALUE] [--device cuda|cpu] [--fleet DEV,DEV,...]
 
 The reference maps one scene per process per GPU (isdf/train/
 train.py:282-358); this CLI time-shares one card across K independent
@@ -14,6 +14,9 @@ config, dataset, seed (``--seed`` + its index) and keyframe state machine;
 the simulated clock bills every scene the whole round's device time, so a
 run keeps real time only if each scene's step rate still clears its
 sequence's budget. Runs on the CUDA device unless ``--device cpu``.
+``--fleet`` runs fleet mode on a "scene" mesh of the listed devices
+(repeats allowed): the scenes split into as many blocks, each on its
+device, the cards stepping their blocks concurrently.
 
 Writes, per scene, ``<save_path>/scene_<i>/``: the scene's config.json, a
 res.json with the loop's summary and the final visible-region SDF eval
@@ -53,18 +56,30 @@ def main(argv=None):
                              "(repeatable)")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
+    parser.add_argument("--fleet", type=str, default=None,
+                        metavar="DEV,DEV,...",
+                        help="fleet mode: the devices of a 'scene' mesh; "
+                             "their number must divide the scenes'")
     args = parser.parse_args(argv)
 
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.eval.protocol import eval_sdf
+    from isdf_tpu_torch.parallel import mesh as PM
     from isdf_tpu_torch.parallel import multi_scene as MS
     from isdf_tpu_torch.utils.checkpoint import save_checkpoint
     from isdf_tpu_torch.utils.config import load_config
 
+    mesh = devices = None
+    if args.fleet:
+        fleet = PM.parse_devices(args.fleet)
+        mesh = PM.make_mesh(axis="scene", devices=(
+            fleet if isinstance(fleet, list) else [fleet]))
+        devices = PM.block_devices(mesh, len(args.configs))
     trainers = []
     for i, path in enumerate(args.configs):
         cfg = load_config(path, overrides=args.overrides)
-        trainers.append(Trainer(cfg, seed=args.seed + i, device=args.device))
+        trainers.append(Trainer(cfg, seed=args.seed + i, device=(
+            args.device if devices is None else devices[i])))
         if args.save_path:
             sdir = os.path.join(args.save_path, f"scene_{i}")
             os.makedirs(sdir, exist_ok=True)
@@ -72,9 +87,11 @@ def main(argv=None):
                 with open(path) as src:
                     json.dump(json.load(src), f, indent=4)
 
+    fleet_kw = ({} if mesh is None else
+                {"stepper": MS.MultiSceneStepper(trainers, mesh=mesh)})
     out = MS.multi_scene_loop(
         trainers, max_steps=args.max_steps, max_time_s=args.max_time_s,
-        extra_opt_steps=args.extra_opt_steps,
+        extra_opt_steps=args.extra_opt_steps, **fleet_kw,
         log_fn=lambda m: print(m, flush=True))
 
     for i, tr in enumerate(trainers):

@@ -26,11 +26,16 @@ the query). So ``capture`` holds ``CAPTURE_LOCK`` from its begin to its
 end, and device work on a thread other than the loop's takes it around
 its launches and copies (serve.py's queries, vis/server.py's handlers
 over a trainer that no loop runs). Nothing else holds it: the loop's
-bundles and the handlers' host work run beside each other.
+bundles and the handlers' host work run beside each other. Python's
+cyclic collector is held off during a capture too: a graph it frees there
+(a dropped trainer's, in a reference cycle) resets, which a capture
+forbids, and the capture is invalidated (``cudaErrorStreamCaptureInvalidated``
+in the next launch, on the card).
 """
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 
@@ -81,18 +86,21 @@ class GraphRunner:
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
-        # intervals: (capture_begin, capture_end) on time.perf_counter()
-        self.stats = {"captures": 0, "capture_s": 0.0, "replays": 0,
-                      "intervals": []}
+        # intervals: (capture_begin, capture_end) on time.perf_counter();
+        # warm_s: the host seconds of warm(), a key's eager first call
+        self.stats = {"captures": 0, "capture_s": 0.0, "warm_s": 0.0,
+                      "replays": 0, "intervals": []}
 
     def warm(self, fn):
         """fn() eagerly on the side stream, ordered after the current
         stream's work and before its later work."""
+        t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
             out = fn()
         cur.wait_stream(self.stream)
+        self.stats["warm_s"] += time.perf_counter() - t0
         return out
 
     def capture(self, fn, generators=()) -> Captured:
@@ -105,20 +113,26 @@ class GraphRunner:
             graph.register_generator_state(gen)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
-        with CAPTURE_LOCK, torch.cuda.stream(self.stream), \
-                nvcc.capture_tally() as tally:
-            tb = time.perf_counter()
-            graph.capture_begin(pool=self.pool)
-            try:
-                fn()
-            except BaseException:
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with CAPTURE_LOCK, torch.cuda.stream(self.stream), \
+                    nvcc.capture_tally() as tally:
+                tb = time.perf_counter()
+                graph.capture_begin(pool=self.pool)
                 try:
-                    graph.capture_end()
-                except Exception:   # the capture is invalid already
-                    pass
-                raise
-            graph.capture_end()
-            te = time.perf_counter()
+                    fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except Exception:   # the capture is invalid already
+                        pass
+                    raise
+                graph.capture_end()
+                te = time.perf_counter()
+        finally:
+            if collecting:
+                gc.enable()
         cur.wait_stream(self.stream)
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0

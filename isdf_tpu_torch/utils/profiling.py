@@ -34,19 +34,34 @@ class BundleClock:
     isdf/eval/metrics.py:13-38), the host's wall clock on the CPU.
 
     Start it before the launches, ``stop()`` after them, and read
-    ``seconds()`` once a fetch of the bundle's results has synced."""
+    ``seconds()`` once a fetch of the bundle's results has synced.
 
-    def __init__(self, device):
+    ``others``: the other cards of a mesh (parallel/mesh.py). Their
+    streams are ordered after the start event and joined back into this
+    card's stream before the stop event, so the time spans every shard:
+    on distinct cards the slowest card's, on shards of one card their
+    sum."""
+
+    def __init__(self, device, others=()):
         import torch
         self._ev = None
+        self._others = []
         if device.type == "cuda":
             self._ev = (torch.cuda.Event(enable_timing=True),
                         torch.cuda.Event(enable_timing=True))
             self._ev[0].record()
+            cur = torch.cuda.current_stream(device)
+            self._others = [torch.cuda.current_stream(d) for d in others
+                            if d.type == "cuda" and d != cur.device]
+            for st in self._others:
+                st.wait_stream(cur)
         self._t0 = time.perf_counter()
 
     def stop(self):
         if self._ev is not None:
+            import torch
+            for st in self._others:
+                torch.cuda.current_stream().wait_stream(st)
             self._ev[1].record()
 
     def seconds(self) -> float:

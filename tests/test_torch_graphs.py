@@ -322,3 +322,55 @@ def test_adamw_device_count_matches_isdf_tpu_over_20_steps():
                                    np.asarray(sj[0].mu[k]), rtol=1e-5)
         np.testing.assert_allclose(st["nu"][k].numpy(),
                                    np.asarray(sj[0].nu[k]), rtol=1e-5)
+
+
+def test_capture_holds_off_the_cyclic_collector(monkeypatch):
+    """GraphRunner.capture disables Python's cyclic collector from
+    capture_begin to capture_end and restores it after, also when the
+    function raises: a graph the collector frees mid-capture resets, which
+    invalidated the capture on the card (CUDA's calls stood in for on the
+    CPU, as tests/test_torch_server.py does)."""
+    import contextlib
+    import gc
+
+    from isdf_tpu_torch.utils import graphs as G
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def register_generator_state(self, gen):
+            pass
+
+        def capture_begin(self, pool=None):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    runner = G.GraphRunner("cpu")
+    assert gc.isenabled()
+    seen = []
+    runner.capture(lambda: seen.append(("fn", gc.isenabled())))
+    assert seen == [("begin", False), ("fn", False), ("end", False)]
+    assert gc.isenabled()
+
+    def fails():
+        raise RuntimeError("planted")
+    with pytest.raises(RuntimeError, match="planted"):
+        runner.capture(fails)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        runner.capture(lambda: None)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()

@@ -30,6 +30,7 @@ from isdf_tpu_torch.data.synthetic import SyntheticDataset, SyntheticScene
 from isdf_tpu_torch.engine.trainer import Trainer
 from isdf_tpu_torch.models import fused_adamw as TA
 from isdf_tpu_torch.models import sdf_mlp as TM
+from isdf_tpu_torch.parallel.mesh import make_mesh
 from isdf_tpu_torch.parallel.multi_scene import (MultiSceneStepper,
                                                  multi_scene_loop)
 from isdf_tpu_torch.utils.config import Config as TConfig
@@ -157,10 +158,79 @@ def test_signature_mismatch_and_unported_modes_raise():
                    device="cpu")
     with pytest.raises(ValueError, match="n_rays"):
         MultiSceneStepper([tr_a, tr_b])
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        MultiSceneStepper([tr_a], mesh=object())
+    # fleet mode is ported: a mesh raises only as isdf_tpu's does
+    # (tests/test_multi_scene.py:290-300), and a data-parallel trainer
+    # still raises as there (isdf_tpu multi_scene.py:135-137)
+    with pytest.raises(ValueError, match="scene"):
+        MultiSceneStepper([tr_a], mesh=make_mesh(devices=["cpu"]))
+    with pytest.raises(ValueError, match="divide"):
+        MultiSceneStepper([tr_a], mesh=make_mesh(axis="scene",
+                                                 devices=["cpu"] * 2))
+    tr_dp = Trainer(small_cfg(data_parallel=2), dataset=ds_a, seed=3,
+                    device="cpu")
+    with pytest.raises(ValueError, match="data parallelism"):
+        MultiSceneStepper([tr_a, tr_dp])
     with pytest.raises(ValueError, match="at least one"):
         MultiSceneStepper([])
+
+
+@pytest.mark.parametrize("K", [2, 4])
+def test_fleet_mesh_matches_per_scene_bundles(K):
+    """Fleet mode on a 2-shard "scene" mesh (isdf_tpu tests/
+    test_multi_scene.py:267-288): K scenes in two blocks, each scene the
+    bits of its own run_steps calls; the scalars too."""
+    scenes = _make_pair()
+    solo = _make_pair()
+    if K == 4:
+        scenes += _make_pair(seed_a=5, seed_b=6)
+        solo += _make_pair(seed_a=5, seed_b=6)
+    stepper = MultiSceneStepper(scenes, mesh=make_mesh(
+        axis="scene", devices=["cpu", "cpu"]))
+    logs = stepper.run_steps(5, n_actives=[5, 3] + [4] * (K - 2))
+    logs += stepper.run_steps(4)
+    for i, (tr, ref) in enumerate(zip(scenes, solo)):
+        n = 5 if i == 0 else 3 if i == 1 else 4
+        sc = ref.run_steps(n)
+        np.testing.assert_array_equal(logs[i]["total_loss"][:n],
+                                      sc["total_loss"])
+        ref.run_steps(4)
+        _assert_same_bits(tr, ref)
+
+
+def test_fleet_mesh_validation():
+    """isdf_tpu tests/test_multi_scene.py:290-300, and scene j's state on
+    the device of its block."""
+    tr_a, tr_b = _make_pair()
+    with pytest.raises(ValueError, match="scene"):
+        MultiSceneStepper([tr_a, tr_b], mesh=make_mesh(
+            devices=["cpu", "cpu"]))
+    with pytest.raises(ValueError, match="divide"):
+        MultiSceneStepper([tr_a, tr_b], mesh=make_mesh(
+            axis="scene", devices=["cpu"] * 4))
+    with pytest.raises(ValueError, match="block's device is meta"):
+        MultiSceneStepper([tr_a, tr_b], mesh=make_mesh(
+            axis="scene", devices=["cpu", "meta"]))
+
+
+def test_fleet_round_bills_the_whole_shared_device():
+    """Blocks that share a device: the round is billed once, from its
+    start until every block has run, so two scenes of 50 ms each bill at
+    least 100 ms to each scene, the sum, not the 50 ms of either block."""
+    import time
+    tr_a, tr_b = _make_pair()
+    for tr in (tr_a, tr_b):
+        inner = tr.fns.train_bundle
+
+        def slow(*a, inner=inner, **k):
+            time.sleep(0.05)
+            return inner(*a, **k)
+        tr.fns.train_bundle = slow
+    stepper = MultiSceneStepper([tr_a, tr_b], mesh=make_mesh(
+        axis="scene", devices=["cpu", "cpu"]))
+    stepper.run_steps(2)
+    assert stepper.measured_s >= 0.1
+    assert tr_a.tot_step_time == tr_b.tot_step_time == stepper.last_bundle_dt
+    assert tr_a.measured_s == tr_b.measured_s == stepper.measured_s
 
 
 def test_joint_billing_and_the_rate_cap_floor():
@@ -438,3 +508,39 @@ def test_train_multi_cli_on_cpu(tmp_path):
         theirs = np.asarray(JEngine.from_checkpoint(ckpt).sdf(pts))
         assert np.isfinite(mine).all()
         np.testing.assert_allclose(mine, theirs, rtol=1e-5, atol=1e-6)
+
+
+def test_train_multi_cli_fleet_on_cpu(tmp_path):
+    """--fleet: the scenes in two blocks of a CPU "scene" mesh, each with
+    its files; an indivisible fleet raises as the stepper does."""
+    from isdf_tpu_torch.train.train_multi import main
+
+    cfgs = [_scene_cfg(str(tmp_path), "a", "room_a"),
+            _scene_cfg(str(tmp_path), "b", "room_b")]
+    out_dir = str(tmp_path / "fleet")
+    out = main(["--config", cfgs[0], "--config", cfgs[1], "--save_path",
+                out_dir, "--max_steps", "20", "--extra_opt_steps", "10",
+                "--fleet", "cpu,cpu"])
+    assert [o["steps"] for o in out] == [20, 20]
+    for i in range(2):
+        with open(os.path.join(out_dir, f"scene_{i}", "res.json")) as f:
+            (entry,) = json.load(f)["sdf_eval"].values()
+        assert math.isfinite(entry["rays"]["av_l1"])
+    with pytest.raises(ValueError, match="divide"):
+        main(["--config", cfgs[0], "--config", cfgs[1], "--max_steps", "2",
+              "--fleet", "cpu,cpu,cpu"])
+
+
+def test_one_data_parallel_scene_steps_as_its_trainer():
+    """A single dp scene is allowed, as in isdf_tpu (its check runs over
+    the scenes after the first): the stepper gives the bits of the
+    trainer's own run_steps (train/profile_step.py profiles dp so)."""
+    ds_a, _ = _datasets(n_frames=20)
+    tr, ref = (Trainer(small_cfg(data_parallel=2), dataset=ds_a, seed=3,
+                       device="cpu") for _ in range(2))
+    for t in (tr, ref):
+        t.last_is_keyframe = True
+        t.add_frame(t.get_data([0])[0])
+    MultiSceneStepper([tr]).run_steps(3)
+    ref.run_steps(3)
+    _assert_same_bits(tr, ref)

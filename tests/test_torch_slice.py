@@ -247,6 +247,7 @@ PORT_MODULES = [
     "isdf_tpu_torch.data.live", "isdf_tpu_torch.data.ros_node",
     "isdf_tpu_torch.data.arkit", "isdf_tpu_torch.data.assets",
     "isdf_tpu_torch.data.replicaCAD_gt_sdf", "isdf_tpu_torch.vis.slices",
+    "isdf_tpu_torch.parallel.mesh",
     "isdf_tpu_torch.parallel.multi_scene", "isdf_tpu_torch.train.train_multi",
     "isdf_tpu_torch.train.batch", "isdf_tpu_torch.eval.baselines",
     "isdf_tpu_torch.eval.figs", "isdf_tpu_torch.utils.graphs",
@@ -325,8 +326,12 @@ def test_unported_config_parts_raise():
     from isdf_tpu_torch.engine.trainer import Trainer
     # slices are ported: the config part no longer raises
     Trainer(_small(TConfig).replace(save_slices=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        Trainer(_small(TConfig).replace(data_parallel=2), device="cpu")
+    # data parallelism is ported: two CPU shards, and isdf_tpu's raise
+    # where the rays do not divide over them
+    tr = Trainer(_small(TConfig).replace(data_parallel=2), device="cpu")
+    assert tr.mesh is not None and tr.mesh.size == 2
+    with pytest.raises(ValueError, match="divide"):
+        Trainer(_small(TConfig).replace(data_parallel=3), device="cpu")
     # every dataset format of isdf_tpu is ported; an unknown one raises
     # as it does there
     with pytest.raises(ValueError, match="unsupported dataset format"):

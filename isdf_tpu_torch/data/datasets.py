@@ -33,6 +33,7 @@ import numpy as np
 
 from isdf_tpu_torch.utils import image_io as IO
 from isdf_tpu_torch.utils.config import Config
+from isdf_tpu_torch.utils.profiling import span
 
 
 def undistort_maps(camera_matrix, distortion, w: int, h: int):
@@ -86,15 +87,16 @@ class DepthTransform:
             self.distortion = np.asarray(distortion, np.float64)
 
     def __call__(self, depth):
-        d = depth.astype(np.float32) * self.inv_scale
-        if getattr(self, "distortion", None) is not None:
-            if self.maps is None:
-                h, w = d.shape
-                self.maps = undistort_maps(self.camera_matrix,
-                                           self.distortion, w, h)
-            d = remap_nearest(d, *self.maps)
-        d[d > self.max_depth] = 0.0
-        return d
+        with span("data.depth_transform"):
+            d = depth.astype(np.float32) * self.inv_scale
+            if getattr(self, "distortion", None) is not None:
+                if self.maps is None:
+                    h, w = d.shape
+                    self.maps = undistort_maps(self.camera_matrix,
+                                               self.distortion, w, h)
+                d = remap_nearest(d, *self.maps)
+            d[d > self.max_depth] = 0.0
+            return d
 
 
 def camera_depth_transform(config: Config) -> DepthTransform:
@@ -140,13 +142,15 @@ class ReplicaDataset:
     def __getitem__(self, idx):
         idx = int(idx)
         dname = "ndepth" if self.noisy else "depth"
-        depth = IO.imread(os.path.join(self.root, f"{dname}{idx:06d}.png"),
-                          IO.IMREAD_UNCHANGED)
-        image = bgr_to_rgb(IO.imread(
-            os.path.join(self.root, f"frame{idx:06d}{self.col_ext}")))
-        return {"image": image,
-                "depth": self.depth_transform(depth),
-                "T": self.Ts[idx]}
+        with span("data.frame"):
+            depth = IO.imread(os.path.join(self.root,
+                                           f"{dname}{idx:06d}.png"),
+                              IO.IMREAD_UNCHANGED)
+            image = bgr_to_rgb(IO.imread(
+                os.path.join(self.root, f"frame{idx:06d}{self.col_ext}")))
+            return {"image": image,
+                    "depth": self.depth_transform(depth),
+                    "T": self.Ts[idx]}
 
 
 class ScanNetDataset:
@@ -167,13 +171,14 @@ class ScanNetDataset:
 
     def __getitem__(self, idx):
         idx = int(idx)
-        depth = IO.imread(os.path.join(self.root, "depth", f"{idx}.png"),
-                          IO.IMREAD_UNCHANGED)
-        image = bgr_to_rgb(IO.imread(
-            os.path.join(self.root, "color", f"{idx}.jpg")))
-        return {"image": image,
-                "depth": self.depth_transform(depth),
-                "T": self.Ts[idx]}
+        with span("data.frame"):
+            depth = IO.imread(os.path.join(self.root, "depth", f"{idx}.png"),
+                              IO.IMREAD_UNCHANGED)
+            image = bgr_to_rgb(IO.imread(
+                os.path.join(self.root, "color", f"{idx}.jpg")))
+            return {"image": image,
+                    "depth": self.depth_transform(depth),
+                    "T": self.Ts[idx]}
 
 
 class RealsenseFrankaOffline:
@@ -191,12 +196,15 @@ class RealsenseFrankaOffline:
 
     def __getitem__(self, idx):
         idx = int(idx)
-        depth = np.load(os.path.join(self.root, f"depth{idx:06d}.npy"))
-        image = bgr_to_rgb(IO.imread(
-            os.path.join(self.root, f"frame{idx:06d}.jpg")))
-        return {"image": image,
-                "depth": self.depth_transform(depth),
-                "T": self.Ts[idx]}
+        with span("data.frame"):
+            with span("data.file_read"):
+                depth = np.load(os.path.join(self.root,
+                                             f"depth{idx:06d}.npy"))
+            image = bgr_to_rgb(IO.imread(
+                os.path.join(self.root, f"frame{idx:06d}.jpg")))
+            return {"image": image,
+                    "depth": self.depth_transform(depth),
+                    "T": self.Ts[idx]}
 
 
 class SceneCache:

@@ -42,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from isdf_tpu_torch.engine.trainer import Trainer
+from isdf_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -168,12 +169,14 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
                             log_fn(f"end of sequence at step {t}; "
                                    f"running {extra_opt_steps} extra steps")
                 else:
-                    trainer.add_frame(trainer.get_data([new_frame_id])[0])
+                    with span("loop.ingest"):
+                        trainer.add_frame(trainer.get_data([new_frame_id])[0])
                     if t == 0:
                         trainer.last_is_keyframe = True
                         trainer.optim_frames = 200  # reference train.py:127
                     elif cfg.refine_poses and trainer.should_refine_pose():
-                        _refine_pose(trainer)
+                        with span("loop.pose_burst"):
+                            _refine_pose(trainer)
 
         if t == break_at or (break_at > 0 and t > break_at):
             break
@@ -207,14 +210,16 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
         while trainer.tot_step_time > next_save:
             save_t = f"{next_save:.3f}"
             next_save += cfg.save_period
-            _save_marks(trainer, save_path, save_t, t)
+            with span("loop.save"):
+                _save_marks(trainer, save_path, save_t, t)
 
         # ---- the fixed-point eval (reference train.py:230-239), keyed by
         # its scheduled timestamp: one bundle can cross several ----
         while (trainer.eval_times
                and trainer.tot_step_time > trainer.eval_times[0]):
             t_sched = trainer.eval_times[0]
-            vox_res[t_sched] = trainer.eval_fixed()
+            with span("loop.eval"):
+                vox_res[t_sched] = trainer.eval_fixed()
             if save_path:
                 with open(os.path.join(save_path, "vox_res.json"), "w") as f:
                     json.dump(vox_res, f, indent=4)
@@ -225,9 +230,10 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
             last_eval = (trainer.tot_step_time
                          - trainer.tot_step_time % cfg.eval_freq_s)
             _te0 = time.perf_counter()
-            entry = _timed_eval(trainer, eval_hook)
-            if cfg.mesh_eval:
-                _mesh_eval(trainer, res, t)
+            with span("loop.eval"):
+                entry = _timed_eval(trainer, eval_hook)
+                if cfg.mesh_eval:
+                    _mesh_eval(trainer, res, t)
             trainer.step_timer.add("eval", time.perf_counter() - _te0)
             if entry:
                 res["sdf_eval"][t] = {"time": trainer.tot_step_time, **entry}
@@ -239,12 +245,14 @@ def train_loop(trainer: Trainer, max_steps: Optional[int] = None,
     # the refinement tail ends; the shipped state is what is scored)
     if do_timed_eval:
         _te0 = time.perf_counter()
-        entry = _timed_eval(trainer, eval_hook)
+        with span("loop.eval"):
+            entry = _timed_eval(trainer, eval_hook)
         trainer.step_timer.add("eval", time.perf_counter() - _te0)
         if entry:
             res["sdf_eval"][t] = {"time": trainer.tot_step_time, **entry}
         if cfg.mesh_eval:
-            _mesh_eval(trainer, res, t)
+            with span("loop.eval"):
+                _mesh_eval(trainer, res, t)
 
     kf_ids = [int(i) for i in trainer.frames.frame_ids[:-1]]
     if save_path and res:

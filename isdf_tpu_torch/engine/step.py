@@ -94,6 +94,7 @@ from isdf_tpu_torch.ops import render as R
 from isdf_tpu_torch.ops import sampling as S
 from isdf_tpu_torch.parallel import mesh as PM
 from isdf_tpu_torch.utils.config import Config
+from isdf_tpu_torch.utils.profiling import span
 
 _MASK64 = (1 << 64) - 1
 # the trained parameters, in the order of a step's gradients
@@ -507,19 +508,24 @@ class StepFunctions:
                      step0: int = 0) -> Dict[str, torch.Tensor]:
         """Run n_steps steps in place; returns the per-step scalars stacked
         [n_steps] on the device. Step step0 + t draws from self.gen seeded
-        with step_seed(seed, step0 + t)."""
-        table = step_table(n_steps, noise_std, lr_scale, buf.count,
-                           self.device)
-        tail = bool(tail)
-        if self.eager:
+        with step_seed(seed, step0 + t). Traced, the call is the span
+        ``step.bundle`` (utils/profiling.py): the interval the sim clock
+        bills."""
+        with span("step.bundle", steps=n_steps):
+            with span("step.table"):
+                table = step_table(n_steps, noise_std, lr_scale, buf.count,
+                                   self.device)
+            tail = bool(tail)
+            if not self.eager:
+                return self._graph_bundle(params, opt_state, buf, transform,
+                                          seed, table, n_steps, tail, step0)
             out = []
             for t in range(n_steps):
-                self.gen.manual_seed(step_seed(seed, step0 + t))
-                out.append(self.core(params, opt_state, buf, transform,
-                                     self.gen, table[t], tail))
+                with span("step.eager"):
+                    self.gen.manual_seed(step_seed(seed, step0 + t))
+                    out.append(self.core(params, opt_state, buf, transform,
+                                         self.gen, table[t], tail))
             return {k: torch.stack([o[k] for o in out]) for k in out[0]}
-        return self._graph_bundle(params, opt_state, buf, transform, seed,
-                                  table, n_steps, tail, step0)
 
     def graph_key(self, buf: FrameBuffer, tail: bool):
         """What a captured step bakes in from the host: select_window's
@@ -568,10 +574,11 @@ class StepFunctions:
             t0 = 1
         graph, ins, out, names = self._captured[key]
         for t in range(t0, n_steps):
-            self.gen.manual_seed(step_seed(seed, step0 + t))
-            ins.copy_(table[t])
-            graph.replay()
-            rows.append(out.clone())
+            with span("step.replay"):
+                self.gen.manual_seed(step_seed(seed, step0 + t))
+                ins.copy_(table[t])
+                graph.replay()
+                rows.append(out.clone())
         stacked = torch.stack(rows)
         return {k: stacked[:, i] for i, k in enumerate(names)}
 
@@ -600,7 +607,8 @@ class StepFunctions:
         view_depth = R.sdf_render_depth(z_sorted, sdf_sorted)
         err = (view_depth - depth_safe).abs() / depth_safe
         below = (err < cfg.kf_dist_th) & valid
-        prop = float(below.sum()) / max(int(valid.sum()), 1)
+        with span("trainer.kf_fetch"):   # the check's syncs
+            prop = float(below.sum()) / max(int(valid.sum()), 1)
         return prop < cfg.kf_pixel_ratio, prop
 
     # ---------------- queries ----------------

@@ -55,7 +55,7 @@ from isdf_tpu_torch.ops import geometry as G
 from isdf_tpu_torch.utils import nvcc
 from isdf_tpu_torch.utils.config import Config, load_config
 from isdf_tpu_torch.utils.device import resolve_device
-from isdf_tpu_torch.utils.profiling import BundleClock, StepTimer
+from isdf_tpu_torch.utils.profiling import BundleClock, StepTimer, span
 
 
 def pinned_dt(n_steps: int, measured: float, per_step_s: float,
@@ -342,56 +342,62 @@ class Trainer:
         return int(self.tot_step_time * self.cfg.fps)
 
     def _compute_normals(self, depth):
-        d = torch.where(depth == 0.0, torch.nan, depth)
-        pc = G.pointcloud_from_depth(d, self.fx, self.fy, self.cx, self.cy)
-        return G.estimate_pointcloud_normals(pc)
+        with span("trainer.normals"):
+            d = torch.where(depth == 0.0, torch.nan, depth)
+            pc = G.pointcloud_from_depth(d, self.fx, self.fy, self.cx,
+                                         self.cy)
+            return G.estimate_pointcloud_normals(pc)
 
     def get_data(self, idxs) -> List[FrameData]:
-        out = []
-        for idx in idxs:
-            s = self.dataset[idx]
-            depth = np.asarray(s["depth"], np.float32)
-            normals = None
-            if self.cfg.do_normal:
-                normals = self._compute_normals(torch.as_tensor(
-                    depth, device=self.device))
-            out.append(FrameData(
-                frame_id=int(idx), image=s.get("image"), depth=depth,
-                T_WC=np.asarray(s["T"], np.float32), normals=normals,
-                T_WC_gt=s.get("T_gt")))
-        return out
+        with span("trainer.get_data"):
+            out = []
+            for idx in idxs:
+                s = self.dataset[idx]
+                depth = np.asarray(s["depth"], np.float32)
+                normals = None
+                if self.cfg.do_normal:
+                    normals = self._compute_normals(torch.as_tensor(
+                        depth, device=self.device))
+                out.append(FrameData(
+                    frame_id=int(idx), image=s.get("image"), depth=depth,
+                    T_WC=np.asarray(s["T"], np.float32), normals=normals,
+                    T_WC_gt=s.get("T_gt")))
+            return out
 
     def add_frame(self, frame: FrameData):
         """Reference add_frame semantics (trainer.py:574-581): freeze the
         net on keyframe promotion; replace the newest arena row unless it
         was a keyframe; reset the per-frame iteration budget."""
-        if self.last_is_keyframe:
-            self.frozen_params = M.copy_params(self.params)
-        replace = not self.last_is_keyframe and len(self.frames) > 0
-        if not replace and self.buffer.count >= self.cfg.kf_buffer_size:
-            if self.cfg.kf_eviction == "lowest":
-                self.buffer = BUF.evict_lowest_priority(self.buffer)
-            else:
-                raise RuntimeError(
-                    f"keyframe arena full ({self.cfg.kf_buffer_size}); "
-                    "raise tpu.kf_buffer_size or set tpu.kf_eviction="
-                    "'lowest' for longer sequences")
-        # the host mirror keeps no normals: the arena holds them
-        self.frames.add(dataclasses.replace(frame, normals=None),
-                        replace=replace)
-        normals = frame.normals
-        if self.buffer.normals is not None and normals is None:
-            normals = torch.zeros((self.H, self.W, 3), device=self.device)
-        self.buffer = BUF.add_frame(
-            self.buffer, torch.as_tensor(frame.depth, device=self.device),
-            torch.as_tensor(frame.T_WC, device=self.device),
-            None if normals is None else torch.as_tensor(
-                normals, device=self.device),
-            frame.frame_id, replace)
-        self.steps_since_frame = 0
-        self.last_is_keyframe = False
-        self.optim_frames = self.cfg.iters_per_frame
-        self.noise_std = self.cfg.noise_frame
+        with span("trainer.add_frame"):
+            if self.last_is_keyframe:
+                self.frozen_params = M.copy_params(self.params)
+            replace = not self.last_is_keyframe and len(self.frames) > 0
+            if not replace and self.buffer.count >= self.cfg.kf_buffer_size:
+                if self.cfg.kf_eviction == "lowest":
+                    self.buffer = BUF.evict_lowest_priority(self.buffer)
+                else:
+                    raise RuntimeError(
+                        f"keyframe arena full ({self.cfg.kf_buffer_size}); "
+                        "raise tpu.kf_buffer_size or set tpu.kf_eviction="
+                        "'lowest' for longer sequences")
+            # the host mirror keeps no normals: the arena holds them
+            self.frames.add(dataclasses.replace(frame, normals=None),
+                            replace=replace)
+            normals = frame.normals
+            if self.buffer.normals is not None and normals is None:
+                normals = torch.zeros((self.H, self.W, 3), device=self.device)
+            with span("buffer.upload"):
+                self.buffer = BUF.add_frame(
+                    self.buffer,
+                    torch.as_tensor(frame.depth, device=self.device),
+                    torch.as_tensor(frame.T_WC, device=self.device),
+                    None if normals is None else torch.as_tensor(
+                        normals, device=self.device),
+                    frame.frame_id, replace)
+            self.steps_since_frame = 0
+            self.last_is_keyframe = False
+            self.optim_frames = self.cfg.iters_per_frame
+            self.noise_std = self.cfg.noise_frame
 
     # ------------------------------------------------------------------
     # keyframe state machine (reference trainer.py:586-650)
@@ -418,47 +424,56 @@ class Trainer:
         return self._last_kf_prop < self.cfg.pose_skip_prop
 
     def check_keyframe_latest(self) -> bool:
-        """Whether to add a new frame (reference trainer.py:622-650)."""
-        add_new_frame = False
-        if self.last_is_keyframe:
-            add_new_frame = True
-        else:
-            self.last_is_keyframe = self.is_keyframe(self.frames[-1])
-            if len(self.frames) >= 2:
-                time_since_kf = (self.tot_step_time
-                                 - self.frames[-2].frame_id / self.cfg.fps)
-                if time_since_kf > 5.0 and not self.cfg.live:
-                    self.last_is_keyframe = True
+        """Whether to add a new frame (reference trainer.py:622-650).
+        Traced, the span ``loop.kf_check``, its count ``added`` 1 where the
+        check made the latest frame a keyframe."""
+        with span("loop.kf_check", added=0) as sp:
+            add_new_frame = False
             if self.last_is_keyframe:
-                self.optim_frames = self.cfg.iters_per_kf
-                self.noise_std = self.cfg.noise_kf
-            else:
                 add_new_frame = True
-        return add_new_frame
+            else:
+                self.last_is_keyframe = self.is_keyframe(self.frames[-1])
+                if len(self.frames) >= 2:
+                    time_since_kf = (self.tot_step_time
+                                     - self.frames[-2].frame_id / self.cfg.fps)
+                    if time_since_kf > 5.0 and not self.cfg.live:
+                        self.last_is_keyframe = True
+                sp.count(added=int(self.last_is_keyframe))
+                if self.last_is_keyframe:
+                    self.optim_frames = self.cfg.iters_per_kf
+                    self.noise_std = self.cfg.noise_kf
+                else:
+                    add_new_frame = True
+            return add_new_frame
 
     # ------------------------------------------------------------------
     # optimisation
 
     def run_steps(self, n_steps: int) -> Dict[str, np.ndarray]:
         """Run ``n_steps`` optimisation steps; advance the sim clock by the
-        bundle's device time (scaled by 1/frac_time_perception)."""
-        clock = BundleClock(self.device, others=(
-            self.mesh.distinct[1:] if self.mesh is not None else ()))
-        scalars = self.fns.train_bundle(
-            self.params, self.opt_state, self.buffer, self.transform_dev,
-            self._bundle_seed, float(self.noise_std), n_steps=n_steps,
-            lr_scale=float(self.lr_scale), tail=bool(self.tail_mode),
-            step0=self.steps_taken)
-        clock.stop()
-        names = sorted(scalars)
-        stacked = torch.stack([scalars[k] for k in names]).cpu().numpy()
-        out = {k: stacked[i] for i, k in enumerate(names)}
-        measured = clock.seconds()
-        dt = pinned_dt(n_steps, measured, self._per_step_device_s,
-                       self._bill_exact)
-        self._bill(dt, n_steps, measured)
-        out["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
-        return out
+        bundle's device time (scaled by 1/frac_time_perception). Traced,
+        the span ``trainer.run_steps``, the scalars' fetch and the bill its
+        child ``trainer.fetch``."""
+        with span("trainer.run_steps", steps=n_steps):
+            clock = BundleClock(self.device, others=(
+                self.mesh.distinct[1:] if self.mesh is not None else ()))
+            scalars = self.fns.train_bundle(
+                self.params, self.opt_state, self.buffer, self.transform_dev,
+                self._bundle_seed, float(self.noise_std), n_steps=n_steps,
+                lr_scale=float(self.lr_scale), tail=bool(self.tail_mode),
+                step0=self.steps_taken)
+            clock.stop()
+            with span("trainer.fetch"):
+                names = sorted(scalars)
+                stacked = torch.stack([scalars[k] for k in names]).cpu() \
+                    .numpy()
+                out = {k: stacked[i] for i, k in enumerate(names)}
+                measured = clock.seconds()
+                dt = pinned_dt(n_steps, measured, self._per_step_device_s,
+                               self._bill_exact)
+                self._bill(dt, n_steps, measured)
+            out["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
+            return out
 
     def _bill(self, dt: float, n_steps: int, measured: float):
         """Book ``n_steps`` steps that took ``dt`` billed seconds

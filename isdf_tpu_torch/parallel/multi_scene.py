@@ -50,7 +50,7 @@ import torch
 
 from isdf_tpu_torch.engine.trainer import Trainer, pinned_dt
 from isdf_tpu_torch.parallel.mesh import Mesh, block_devices, on
-from isdf_tpu_torch.utils.profiling import BundleClock
+from isdf_tpu_torch.utils.profiling import BundleClock, span
 
 # the config fields of isdf_tpu's compiled step body (its step.py::
 # build_step_functions closes over them): scenes stepped together must
@@ -138,52 +138,56 @@ class MultiSceneStepper:
         device time (Trainer._bill: ``dt / frac_time_perception`` each,
         floored by ``n_active / step_rate_cap`` where a cap is set), as if
         K reference processes time-shared one card; an idle scene is not
-        billed."""
+        billed. Traced, the round is the span ``fleet.round``, the
+        scalars' fetch and the clock's read its child ``fleet.fetch``."""
         if n_actives is None:
             n_actives = [n_steps] * self.K
         n_actives = [int(min(max(n, 0), n_steps)) for n in n_actives]
-        clock = BundleClock(self.device, others=self._others)
-        outs = {}
-        for i, (tr, na) in enumerate(zip(self.trainers, n_actives)):
-            if na == 0:
-                continue
-            # in fleet mode on the scene's card, so its launches go to
-            # that card's stream
-            with on(tr.device):
-                outs[i] = tr.fns.train_bundle(
-                    tr.params, tr.opt_state, tr.buffer, tr.transform_dev,
-                    tr._bundle_seed, float(tr.noise_std), n_steps=na,
-                    lr_scale=float(tr.lr_scale), tail=bool(tr.tail_mode),
-                    step0=tr.steps_taken)
-        clock.stop()
-        if outs:
-            self._names = sorted(next(iter(outs.values())))
-        names = self._names
-        # one fetch of every scene's scalars: the round's sync
-        flat = (torch.cat([outs[i][k].to(self.device) for i in sorted(outs)
-                           for k in names]).cpu().numpy()
-                if outs and names else np.zeros(0))
-        measured = clock.seconds()
-        self.measured_s += measured
-        dt = pinned_dt(n_steps, measured, self._per_step_device_s,
-                       self._bill_exact)
-        self.last_bundle_dt = dt
+        with span("fleet.round", scenes=sum(n > 0 for n in n_actives),
+                  steps=sum(n_actives)):
+            clock = BundleClock(self.device, others=self._others)
+            outs = {}
+            for i, (tr, na) in enumerate(zip(self.trainers, n_actives)):
+                if na == 0:
+                    continue
+                # in fleet mode on the scene's card, so its launches go to
+                # that card's stream
+                with on(tr.device):
+                    outs[i] = tr.fns.train_bundle(
+                        tr.params, tr.opt_state, tr.buffer, tr.transform_dev,
+                        tr._bundle_seed, float(tr.noise_std), n_steps=na,
+                        lr_scale=float(tr.lr_scale), tail=bool(tr.tail_mode),
+                        step0=tr.steps_taken)
+            clock.stop()
+            if outs:
+                self._names = sorted(next(iter(outs.values())))
+            names = self._names
+            with span("fleet.fetch"):
+                # one fetch of every scene's scalars: the round's sync
+                flat = (torch.cat([outs[i][k].to(self.device)
+                                   for i in sorted(outs) for k in names])
+                        .cpu().numpy() if outs and names else np.zeros(0))
+                measured = clock.seconds()
+                self.measured_s += measured
+                dt = pinned_dt(n_steps, measured, self._per_step_device_s,
+                               self._bill_exact)
+                self.last_bundle_dt = dt
 
-        results, at = [], 0
-        for i, tr in enumerate(self.trainers):
-            na = n_actives[i]
-            sc = {}
-            for k in names:
-                col = np.full(n_steps, np.nan, np.float32)
-                if i in outs:
-                    col[:na] = flat[at:at + na]
-                    at += na
-                sc[k] = col
-            if na > 0:
-                tr._bill(dt, na, measured)
-            sc["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
-            results.append(sc)
-        return results
+            results, at = [], 0
+            for i, tr in enumerate(self.trainers):
+                na = n_actives[i]
+                sc = {}
+                for k in names:
+                    col = np.full(n_steps, np.nan, np.float32)
+                    if i in outs:
+                        col[:na] = flat[at:at + na]
+                        at += na
+                    sc[k] = col
+                if na > 0:
+                    tr._bill(dt, na, measured)
+                sc["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
+                results.append(sc)
+            return results
 
 
 def multi_scene_loop(

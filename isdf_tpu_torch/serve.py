@@ -49,6 +49,7 @@ from isdf_tpu_torch.eval.metrics import chomp_cost, linear_cost
 from isdf_tpu_torch.models import sdf_mlp as M
 from isdf_tpu_torch.utils.device import resolve_device
 from isdf_tpu_torch.utils.graphs import CAPTURE_LOCK
+from isdf_tpu_torch.utils.profiling import span
 
 # cap per request: 1M points (12 MB of float32 xyz); bigger batches stream
 # several requests
@@ -167,36 +168,54 @@ class SDFQueryEngine:
 
     # ------------------------------------------------------------ queries
     def _chunked(self, pts, grad: bool) -> np.ndarray:
-        pts = np.ascontiguousarray(pts, np.float32)
-        if pts.ndim != 2 or pts.shape[1] != 3:
-            raise ValueError(f"points must be [N,3], got {pts.shape}")
-        n = pts.shape[0]
-        if n > MAX_POINTS:
-            raise ValueError(f"{n} points exceeds the {MAX_POINTS} cap; "
-                             "stream multiple requests")
-        if not np.isfinite(pts).all():
-            # JSON's NaN / Infinity tokens parse, but would come back as
-            # bare NaN, which strict JSON clients reject
-            raise ValueError("points contain non-finite values")
-        with self._lock:
-            params, transform = self.params, self.transform
-        if n == 0:
-            return np.zeros((0, 3) if grad else (0,), np.float32)
-        K = self.chunk_size
-        # queries come from threads beside a training loop, whose graph
-        # captures another thread's device work would break (utils/graphs)
-        with CAPTURE_LOCK:
-            x = torch.from_numpy(pts).to(self.device)
-            out = []
-            for i in range(0, n, K):
-                if grad:
-                    out.append(M.sdf_and_grad(params, x[i:i + K], self.model,
-                                              transform=transform)[1])
-                else:
-                    with torch.no_grad():
-                        out.append(M.apply(params, x[i:i + K], self.model,
-                                           transform=transform))
-            return torch.cat(out).cpu().numpy()
+        """Traced, a request is the span ``serve.request`` with the children
+        ``serve.validate``, ``serve.lock`` (waiting for CAPTURE_LOCK),
+        ``serve.copy_in``, ``serve.compute`` (the launches) and
+        ``serve.fetch`` (the copy back, which waits for the card)."""
+        with span("serve.request", grad=int(grad)) as req:
+            with span("serve.validate"):
+                pts = np.ascontiguousarray(pts, np.float32)
+                if pts.ndim != 2 or pts.shape[1] != 3:
+                    raise ValueError(
+                        f"points must be [N,3], got {pts.shape}")
+                n = pts.shape[0]
+                req.count(points=n)
+                if n > MAX_POINTS:
+                    raise ValueError(f"{n} points exceeds the {MAX_POINTS} "
+                                     "cap; stream multiple requests")
+                if not np.isfinite(pts).all():
+                    # JSON's NaN / Infinity tokens parse, but would come
+                    # back as bare NaN, which strict JSON clients reject
+                    raise ValueError("points contain non-finite values")
+            with self._lock:
+                params, transform = self.params, self.transform
+            if n == 0:
+                return np.zeros((0, 3) if grad else (0,), np.float32)
+            K = self.chunk_size
+            # queries come from threads beside a training loop, whose graph
+            # captures another thread's device work would break
+            # (utils/graphs)
+            with span("serve.lock"):
+                CAPTURE_LOCK.acquire()
+            try:
+                with span("serve.copy_in"):
+                    x = torch.from_numpy(pts).to(self.device)
+                out = []
+                with span("serve.compute"):
+                    for i in range(0, n, K):
+                        if grad:
+                            out.append(M.sdf_and_grad(
+                                params, x[i:i + K], self.model,
+                                transform=transform)[1])
+                        else:
+                            with torch.no_grad():
+                                out.append(M.apply(params, x[i:i + K],
+                                                   self.model,
+                                                   transform=transform))
+                with span("serve.fetch"):
+                    return torch.cat(out).cpu().numpy()
+            finally:
+                CAPTURE_LOCK.release()
 
     def sdf(self, pts) -> np.ndarray:
         """SDF values [N] (metres) at world points [N, 3]."""

@@ -16,8 +16,10 @@ once bare, once under torch.profiler tracing the card only. Prints, per
 round and per scene-step, the host-clock time of both (the difference is
 what tracing costs), the billed device time (the stepper's CUDA events,
 the trainers' ``measured_s``) and, read from the exported trace, the
-kernels by device time and the device's idle share: 1 - (union of kernel
-intervals) / (first kernel start to last kernel end); also the CUDA graph
+kernels by device time and the device's idle share inside the stepper's
+rounds: 1 - (union of the device operations inside the program's
+``fleet.round`` spans, utils/profiling.py) / (the spans' time), a round
+holding its bundles, the scalars' fetch and the bill; also the CUDA graph
 replays and captures (engine/step.py), and the peak memory.
 
 The steps run as replays of captured CUDA graphs, the trainers' route on
@@ -41,13 +43,14 @@ CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
 WARMUP, STEPS, BUNDLE = 300, 200, 10
 
 
-def kernel_intervals(trace_path):
-    """[(start_us, dur_us, name)] of the device kernels in a Chrome trace
-    that torch.profiler exported."""
+def kernel_intervals(trace_path, cats=("kernel",)):
+    """[(start_us, dur_us, name)] of the device kernels (``cats``: the
+    device events of those categories) in a Chrome trace that
+    torch.profiler exported."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     return [(float(e["ts"]), float(e["dur"]), e["name"]) for e in events
-            if e.get("cat") == "kernel" and e.get("ph") == "X"]
+            if e.get("cat") in cats and e.get("ph") == "X"]
 
 
 def busy_us(intervals):
@@ -58,6 +61,18 @@ def busy_us(intervals):
             total += s + d - max(s, end)
             end = s + d
     return total
+
+
+def idle_within(intervals, spans):
+    """1 - (union of the intervals inside the spans) / (the spans' time);
+    None without spans."""
+    total = sum(s.t1 - s.t0 for s in spans)
+    if total <= 0:
+        return None
+    busy = sum(busy_us([(max(a, s.t0), min(a + d, s.t1) - max(a, s.t0), n)
+                        for a, d, n in intervals if a < s.t1 and a + d > s.t0])
+               for s in spans)
+    return 1.0 - busy / total
 
 
 def profile(overrides=(), scenes: int = 1, eager: bool = False,
@@ -74,6 +89,7 @@ def profile(overrides=(), scenes: int = 1, eager: bool = False,
     from isdf_tpu_torch.engine.trainer import Trainer
     from isdf_tpu_torch.parallel.multi_scene import (MultiSceneStepper,
                                                      multi_scene_loop)
+    from isdf_tpu_torch.utils import profiling
     from isdf_tpu_torch.utils.config import load_config
 
     K = scenes
@@ -102,12 +118,15 @@ def profile(overrides=(), scenes: int = 1, eager: bool = False,
 
     stepper.run_steps(bundle)
     wall_bare, dev, n_replays = timed()
+    profiling.clear()
     with trace(activities=[ProfilerActivity.CUDA]) as prof:
         wall_traced, _, _ = timed()
+    rounds = [s for s in profiling.recorded() if s.name == "fleet.round"]
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         ivs = kernel_intervals(path)
+        ops = kernel_intervals(path, ("kernel", "gpu_memcpy", "gpu_memset"))
     stats = [t.fns.graphs.stats for t in trainers if t.fns.graphs]
     out = dict(
         card=torch.cuda.get_device_name(0), scenes=K, eager=eager,
@@ -124,10 +143,9 @@ def profile(overrides=(), scenes: int = 1, eager: bool = False,
         for _, dur, name in ivs:
             by_name[name][0] += dur
             by_name[name][1] += 1
-        window = max(s + d for s, d, _ in ivs) - min(s for s, _, _ in ivs)
         out.update(
             kernel_ms=sum(v[0] for v in by_name.values()) / 1e3 / n,
-            idle_share=1.0 - busy_us(ivs) / window,
+            idle_share=idle_within(ops, rounds),
             by_kernel={k: (v[0] / 1e3 / n, v[1] / n)
                        for k, v in by_name.items()})
     return out
@@ -168,8 +186,11 @@ def main(argv=None):
           f"{r['kernel_ms']:.4f} ms per scene-step; kernels: "
           f"{r['kernels_per_step'] * n / rounds:.1f} per round, "
           f"{r['kernels_per_step']:.1f} per scene-step")
-    print(f"device kernels and graph replays are counted apart; traced "
-          f"window idle share: {r['idle_share']:.4f}")
+    idle = r["idle_share"]
+    print(f"device kernels and graph replays are counted apart; idle share "
+          f"inside the rounds (traced): "
+          + ("no fleet.round span recorded" if idle is None
+             else f"{idle:.4f}"))
     print(f"{'device ms/step':>14} {'share':>7} {'calls/step':>10}  kernel")
     for name, (ms, cnt) in sorted(r["by_kernel"].items(),
                                   key=lambda kv: -kv[1][0])[:20]:

@@ -42,6 +42,7 @@ import time
 import torch
 
 from isdf_tpu_torch.utils import nvcc
+from isdf_tpu_torch.utils.profiling import span
 
 # process-wide, as CUDA's global capture mode is; re-entrant, so device
 # work that calls other locked work does not wait on itself
@@ -97,7 +98,7 @@ class GraphRunner:
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
+        with span("graphs.warm"), torch.cuda.stream(self.stream):
             out = fn()
         cur.wait_stream(self.stream)
         self.stats["warm_s"] += time.perf_counter() - t0
@@ -106,35 +107,37 @@ class GraphRunner:
     def capture(self, fn, generators=()) -> Captured:
         """Record fn()'s launches as a graph; fn runs once, on the host
         only. Its tensors come from the runner's pool and stay valid for
-        the graph's replays."""
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        for gen in generators:
-            graph.register_generator_state(gen)
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with CAPTURE_LOCK, torch.cuda.stream(self.stream), \
-                    nvcc.capture_tally() as tally:
-                tb = time.perf_counter()
-                graph.capture_begin(pool=self.pool)
-                try:
-                    fn()
-                except BaseException:
+        the graph's replays. The span ``graphs.capture`` encloses the
+        capture; none opens inside it."""
+        with span("graphs.capture"):
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                graph.register_generator_state(gen)
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with CAPTURE_LOCK, torch.cuda.stream(self.stream), \
+                        nvcc.capture_tally() as tally:
+                    tb = time.perf_counter()
+                    graph.capture_begin(pool=self.pool)
                     try:
-                        graph.capture_end()
-                    except Exception:   # the capture is invalid already
-                        pass
-                    raise
-                graph.capture_end()
-                te = time.perf_counter()
-        finally:
-            if collecting:
-                gc.enable()
-        cur.wait_stream(self.stream)
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        self.stats["intervals"].append((tb, te))
-        return Captured(graph, list(tally), self)
+                        fn()
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except Exception:   # the capture is invalid already
+                            pass
+                        raise
+                    graph.capture_end()
+                    te = time.perf_counter()
+            finally:
+                if collecting:
+                    gc.enable()
+            cur.wait_stream(self.stream)
+            self.stats["captures"] += 1
+            self.stats["capture_s"] += time.perf_counter() - t0
+            self.stats["intervals"].append((tb, te))
+            return Captured(graph, list(tally), self)

@@ -36,6 +36,7 @@ import zlib
 import numpy as np
 
 from isdf_tpu_torch.utils import native
+from isdf_tpu_torch.utils.profiling import span
 
 IMREAD_UNCHANGED = -1
 IMREAD_COLOR = 1
@@ -65,8 +66,10 @@ def _read_bytes(src) -> bytes:
         return bytes(src)
     if isinstance(src, np.ndarray):
         return src.tobytes()
-    with open(src, "rb") as f:
-        return f.read()
+    with span("data.file_read") as sp, open(src, "rb") as f:
+        data = f.read()
+        sp.count(bytes=len(data))
+        return data
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +219,11 @@ def read_png(src, flags: int = IMREAD_UNCHANGED) -> np.ndarray:
         raise ValueError(f"PNG: bit depth {depth} is not supported")
     bpp = channels * depth // 8
     stride = w * bpp
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, stride, bpp)
+    with span("data.png_inflate") as sp:
+        raw = zlib.decompress(b"".join(idat))
+        sp.count(bytes=len(raw))
+    with span("data.png_unfilter"):
+        pix = _unfilter(raw, h, stride, bpp)
     if depth == 16:
         img = pix.view(">u2").astype(np.uint16).reshape(h, w)
     else:
@@ -620,6 +627,11 @@ def read_jpeg(src, flags: int = IMREAD_COLOR) -> np.ndarray:
     """Decode a baseline JPEG file or bytes. COLOR: BGR (H, W, 3) uint8;
     UNCHANGED: grey (H, W) for one component, else BGR."""
     data = _read_bytes(src)
+    with span("data.jpeg_decode", bytes=len(data)):
+        return _decode_jpeg(data, flags)
+
+
+def _decode_jpeg(data: bytes, flags: int) -> np.ndarray:
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG stream")
     lib = _lib()

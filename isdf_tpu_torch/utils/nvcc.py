@@ -33,6 +33,8 @@ import time
 
 import torch
 
+from isdf_tpu_torch.utils.profiling import span
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 
@@ -72,33 +74,36 @@ def _target(src_dir: str, name: str) -> str:
 
 def _build(pairs):
     """Compile the (src_dir, name) libraries not built yet, one nvcc each,
-    all at once."""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    procs = {}
-    for src_dir, name in pairs:
-        out = _target(src_dir, name)
-        if os.path.exists(out) or out in procs:
-            continue
-        os.makedirs(build_dir(), exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        src = os.path.join(src_dir, f"{name}.cu")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-I", src_dir, "-o", tmp, src]
-        procs[out] = (name, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, time.perf_counter())
-    failed = []
-    for out, (name, proc, tmp, t0) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_INFO[(os.path.dirname(proc.args[-1]), name)] = {
-            "nvcc_log": log, "build_s": time.perf_counter() - t0}
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    all at once; traced, the span ``nvcc.build`` with the count of
+    libraries compiled."""
+    with span("nvcc.build") as sp:
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        procs = {}
+        for src_dir, name in pairs:
+            out = _target(src_dir, name)
+            if os.path.exists(out) or out in procs:
+                continue
+            os.makedirs(build_dir(), exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            src = os.path.join(src_dir, f"{name}.cu")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                   "-Xptxas", "-v", "-I", src_dir, "-o", tmp, src]
+            procs[out] = (name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, time.perf_counter())
+        sp.count(libs=len(procs))
+        failed = []
+        for out, (name, proc, tmp, t0) in procs.items():
+            log, _ = proc.communicate()
+            BUILD_INFO[(os.path.dirname(proc.args[-1]), name)] = {
+                "nvcc_log": log, "build_s": time.perf_counter() - t0}
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def build(pairs):

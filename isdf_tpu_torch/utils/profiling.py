@@ -1,15 +1,43 @@
 """Tracing, bundle timing and rolling step-time statistics
-(isdf_tpu/utils/profiling.py): a torch.profiler trace context, the clock
-that times a bundle on its device, and the reference GUI's 20-second
-compute balance readout (isdf_window.py:694-708)."""
+(isdf_tpu/utils/profiling.py): a torch.profiler trace context, the
+program's own spans, the clock that times a bundle on its device, and the
+reference GUI's 20-second compute balance readout (isdf_window.py:694-708).
+
+Spans. ``span(name, **counts)`` marks a piece of the program's host work
+(a bundle, a request's copy-in, a frame read). It is on exactly while a
+torch profiler runs (``device_trace``, any ``torch.profiler.profile``),
+read from the profiler's own enabled flag; otherwise it returns one shared
+context that does nothing. On, it opens a record_function range
+``"isdf." + name`` (on the profiler's fast path: an event of category
+``cpu_op``), so that the span lands in the Chrome trace beside the
+kernels, and keeps a ``Span`` record in memory: name, start and end in
+microseconds on the exported trace's clock, its id, the id of the span
+that encloses it on its thread, the thread, and its counts (``bytes=``,
+``steps=``, ...; more may be added inside the block with ``.count()``).
+``recorded(t0_us, t1_us)`` returns the records that overlap a window of
+the trace, ``clear()`` empties them. The records are bounded
+(``SPAN_CAP``); those past the bound are counted in ``dropped()``. No span
+may sit inside code a CUDA graph captures.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from collections import deque
-from typing import Deque, Dict
+from typing import Deque, Dict, List, NamedTuple, Optional
+
+import torch
+from torch.autograd import profiler as _tprof
+
+# record_function's fast path, the one torch's compiled code takes: a
+# range in C++ with no operator dispatched, 1-2 us on against 12-16 us for
+# torch.profiler.record_function, so that little lies between a span's
+# stamp and the profiler's own
+_RANGE = torch._C._profiler._RecordFunctionFast
 
 
 @contextlib.contextmanager
@@ -17,7 +45,6 @@ def device_trace(log_dir: str):
     """torch.profiler over the block, the CPU and (where there is one) the
     CUDA device; writes a Chrome trace, ``trace.json`` in ``log_dir``,
     when the block ends. Yields the directory."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -26,6 +53,133 @@ def device_trace(log_dir: str):
     with profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# torch's Chrome exporter writes each timestamp less a base: unix time
+# rounded down to a multiple of this period (``baseTimeNanoseconds`` in
+# the exported file)
+TRACE_BASE_PERIOD_NS = 7_889_238 * 10 ** 9
+SPAN_CAP = 1 << 18
+
+
+def trace_us(unix_ns: int) -> float:
+    """A unix time in ns on the exported Chrome trace's clock (us)."""
+    return (unix_ns - unix_ns // TRACE_BASE_PERIOD_NS
+            * TRACE_BASE_PERIOD_NS) * 1e-3
+
+
+class Span(NamedTuple):
+    """One recorded span: ``t0``, ``t1`` in us on the trace's clock;
+    ``parent`` the ``sid`` of the span enclosing it on its thread."""
+    name: str
+    t0: float
+    t1: float
+    sid: int
+    parent: Optional[int]
+    thread: int
+    counts: Dict[str, float]
+
+
+class _Recorder:
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.dropped = 0
+        self.ids = itertools.count()
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def keep(self, rec: Span):
+        with self.lock:
+            if len(self.spans) < SPAN_CAP:
+                self.spans.append(rec)
+            else:
+                self.dropped += 1
+
+
+_REC = _Recorder()
+
+
+class _Off:
+    """The span while no profiler runs."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts):
+        pass
+
+
+_OFF = _Off()
+
+
+class _On:
+    __slots__ = ("name", "counts", "sid", "parent", "t0", "range")
+
+    def __init__(self, name: str, counts: dict):
+        self.name, self.counts = name, counts
+
+    def __enter__(self):
+        st = _REC.stack()
+        self.parent = st[-1].sid if st else None
+        self.sid = next(_REC.ids)
+        st.append(self)
+        self.range = _RANGE("isdf." + self.name)
+        # the profiler stamps a range last on entry and first on exit, so
+        # the stamps here are taken inside it
+        self.range.__enter__()
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.range.__exit__(*exc)
+        st = _REC.stack()
+        if st and st[-1] is self:
+            st.pop()
+        _REC.keep(Span(self.name, trace_us(self.t0), trace_us(t1), self.sid,
+                       self.parent, threading.get_ident(), self.counts))
+        return False
+
+    def count(self, **counts):
+        self.counts.update(counts)
+
+
+def span(name: str, **counts):
+    """A context recording the block as span ``name`` while a torch
+    profiler runs; one shared no-op context otherwise."""
+    if not _tprof._is_profiler_enabled:
+        return _OFF
+    return _On(name, counts)
+
+
+def recorded(t0_us: float = float("-inf"),
+             t1_us: float = float("inf")) -> List[Span]:
+    """The kept spans that overlap [t0_us, t1_us) on the trace's clock,
+    in the order they ended."""
+    with _REC.lock:
+        spans = list(_REC.spans)
+    return [s for s in spans if s.t1 > t0_us and s.t0 < t1_us]
+
+
+def dropped() -> int:
+    """Spans not kept since the last clear(): the recorder was full."""
+    return _REC.dropped
+
+
+def clear():
+    with _REC.lock:
+        _REC.spans.clear()
+        _REC.dropped = 0
 
 
 class BundleClock:
@@ -43,7 +197,6 @@ class BundleClock:
     sum."""
 
     def __init__(self, device, others=()):
-        import torch
         self._ev = None
         self._others = []
         if device.type == "cuda":
@@ -59,7 +212,6 @@ class BundleClock:
 
     def stop(self):
         if self._ev is not None:
-            import torch
             for st in self._others:
                 torch.cuda.current_stream().wait_stream(st)
             self._ev[1].record()

@@ -10,9 +10,10 @@
     python3 chip_smoke.py --parallel-only  # build, then phase 14 only
 
 Phases (any failure is an uncaught exception and a non-zero exit):
-  1. build the five kernel libraries from isdf_tpu_torch/csrc with nvcc,
+  1. build the six kernel libraries from isdf_tpu_torch/csrc with nvcc,
      one nvcc per source, all started together (the *_f32 sources are the
-     MLP kernels' f32-product mode);
+     MLP kernels' f32-product mode; query_mlp the serve engine's query
+     kernel);
   2. hold each kernel against its plain PyTorch version at the trainer's
      shapes (N = 27,000 points, R = 1,000 surface points, full-width random
      weights from a seed, a non-identity scene transform) and time both:
@@ -22,7 +23,12 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      (tpu.mm_precision other than "default": split-bf16 tensor-core
      products, six cross terms) against the plain versions with IEEE f32
      products; each is also called twice on the same inputs and must give
-     the same bits.
+     the same bits. Then the query kernel, the port's own (isdf_tpu's query
+     is one XLA-fused program): Q-sdf and Q-grad at 65,536 points, a scene
+     frame turned about two axes, against the eager apply / sdf_and_grad in
+     float32 (sdf_gap, grad_gap within TOL_Q), one engine request of each
+     being one launch and one query kernel in its trace, timed beside the
+     eager chain (the yardstick) and the FMA bound.
      K4 is held on five inputs (the trainer's, exact ties, ragged M and R,
      one valid surface point, none), must be one launch a call with no
      other device kernel, and is timed beside the port's matmul route for
@@ -37,8 +43,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      split), a second in K4 (its merge of the groups preferring the later
      group on equal minima) and two in the f32 mode's split products (the
      hm and mh terms dropped; the hl and lh terms dropped, which shows that
-     TOL_F32 tells six terms from four) in copies of the sources, build
-     the copies, and require each check to fail on its faulty kernel;
+     TOL_F32 tells six terms from four) and one in the query kernel (the
+     skip layer reading zeros for its pe rows, held in both modes) in
+     copies of the sources, build the copies, and require each check to
+     fail on its faulty kernel;
   4. drive the online trainer through its entry points (Trainer +
      train_loop) on isdf_tpu_torch/train/configs/synthetic.json with the
      simulated clock pinned, per path: as shipped (pc bounds -> K1-pc);
@@ -154,8 +162,9 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      toggles, one planner POSTing 65,536-point /sdf requests): every
      response 200 but the keyframe strip before the first frame, at least
      one refresh on the loop's thread and no map evaluation on any other,
-     K1-pc once a step, the parameters' bits and the captures of a plain
-     run; three such runs, each after a plain run, their median billed
+     K1-pc once a step, the query kernel once a chunk of the planner's
+     requests and no other kernel, the parameters' bits and the captures
+     of a plain run; three such runs, each after a plain run, their median billed
      device ms a step less the graphs' set-up (each key's eager first
      step and its capture, 0.03-0.43 s of host work billed with its
      bundle) within 3% of the plain runs' median (the full bills, the
@@ -164,7 +173,8 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      run's; (b) the
      capture stress run: phase 10's keyed schedule (and a 4-row arena's)
      on graphs with planner threads querying the engine in a tight loop,
-     every capture overlapping a query, no error, the eager loop's bits;
+     every capture overlapping a query, no error, the eager loop's bits
+     (the run's seconds printed);
      (c) a pause over HTTP at about step 200 for 2 s: two status reads 1 s
      apart the same steps and sim time, then the plain run's bits and
      clock; (d) iters_per_step 5 through the viewer's controls: no bundle
@@ -252,6 +262,11 @@ TOL_LAST_REL = 1e-1
 # 8.4e-8, 9.5e-7, 1.2e-6, 2.9e-6 and 1.5e-6; 1.2e-7 and 9.1e-3.
 TOL_F32 = dict(sums=1e-6, ploss=5e-6, grad=2e-5, raw=3e-5, raw_rms=1.5e-5,
                loss=1e-6, last=3e-2)
+# The query kernel (Q-sdf, Q-grad) against the eager chain in float32 (TF32
+# off) at the serve engine's chunk of 65,536 points: max |kernel - eager|
+# over the request's max |eager|, both IEEE f32 with other sum orders
+Q_POINTS = 65536
+TOL_Q = 1e-5
 # traces of one measurement, taken again while one comes back short of
 # a kernel's launches (device_ms), and the host time between the traced
 # calls and either edge of the trace
@@ -265,7 +280,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 CONFIG = os.path.join(ROOT, "isdf_tpu_torch", "train", "configs",
                       "synthetic.json")
 SOURCES = ("train_mlp", "bounds_pc", "reverse_fused", "train_mlp_f32",
-           "reverse_fused_f32")
+           "reverse_fused_f32", "query_mlp")
 REPLACES = {
     "K1-pc": "isdf_tpu/models/pallas_mlp.py:726",
     "K1-ray": "isdf_tpu/models/pallas_mlp.py:685",
@@ -278,17 +293,23 @@ REPLACES = {
 # built with mm_dtype = float32 (pallas_mlp.py:618-620, 836-838)
 F32 = ("K1-pc-f32", "K1-ray-f32", "K1-stream-f32", "K2-f32", "K3-f32")
 REPLACES.update((k, REPLACES[k[:-4]]) for k in F32)
+# the port's own kernel: isdf_tpu answers a query with one XLA-fused
+# program, no pl.pallas_call
+REPLACES.update((k, "none (isdf_tpu/serve.py:53-70, XLA-fused)")
+                for k in ("Q-sdf", "Q-grad"))
 # the device kernels each kernel's wrapper launches, as the trace names them
 KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
                 "K1-ray": ("k_train_tile", "k_dw", "k_reduce"),
                 "K1-stream": ("k_train_tile", "k_dw", "k_reduce"),
                 "K2": ("k_rf_forward",),
                 "K3": ("k_rf_vjp_tile", "k_dw", "k_reduce"),
-                "K4": ("k_closest_surface",)}
+                "K4": ("k_closest_surface",),
+                "Q-sdf": ("k_query_sdf",), "Q-grad": ("k_query_grad",)}
 KERNEL_NAMES.update((k, KERNEL_NAMES[k[:-4]]) for k in F32)
 SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
              "K1-stream": "train_mlp", "K4": "bounds_pc",
-             "K2": "reverse_fused", "K3": "reverse_fused"}
+             "K2": "reverse_fused", "K3": "reverse_fused",
+             "Q-sdf": "query_mlp", "Q-grad": "query_mlp"}
 SOURCE_OF.update((k, SOURCE_OF[k[:-4]] + "_f32") for k in F32)
 # planted faults, one per kernel of the second slice, two in K1's staged
 # products and a second in K4's group merge: (label, kernel whose check
@@ -323,6 +344,13 @@ PLANTED = (
     ("f32 split hl lh", "K1-pc-f32", "mlp_tile.cuh",
      "split_term<0, 2>(acc, a, b); split_term<2, 0>(acc, a, b);  // hl, lh",
      "// hl, lh dropped"),
+    # the query kernel's skip layer reads zeros in place of its pe rows
+    ("Q skip pe rows", "Q-sdf", "query_mlp.cu",
+     "tile_pe(a, sh, act, p0, tid, false);  // the skip layer's pe rows",
+     "tile_fill_rows(act, 0, QH, 0.f, tid);  // the skip layer's pe rows"),
+    ("Q-grad skip pe rows", "Q-grad", "query_mlp.cu",
+     "tile_pe(a, sh, act, p0, tid, false);  // the skip layer's pe rows",
+     "tile_fill_rows(act, 0, QH, 0.f, tid);  // the skip layer's pe rows"),
 )
 
 
@@ -344,10 +372,10 @@ def card_line():
 
 
 def all_launches():
-    from isdf_tpu_torch.models import cuda_mlp, cuda_reverse_fused
+    from isdf_tpu_torch.models import cuda_mlp, cuda_query, cuda_reverse_fused
     from isdf_tpu_torch.ops import cuda_bounds
     return (cuda_mlp.LAUNCHES, cuda_bounds.LAUNCHES,
-            cuda_reverse_fused.LAUNCHES)
+            cuda_reverse_fused.LAUNCHES, cuda_query.LAUNCHES)
 
 
 # the device kernels of each MLP library's occupancy query, in its order
@@ -466,7 +494,16 @@ def flop_count(name, model, N, R):
     PE build (K1-pc/ray, 7 per lane), the scores (7 per surface point),
     the tangent contractions and the output head. In the f32-product mode
     ("-f32") the first count is of f32-grade products, each SPLIT_N bf16
-    products on the tensor cores (or one IEEE f32 FMA chain)."""
+    products on the tensor cores (or one IEEE f32 FMA chain). Q: all f32,
+    the benchmark's count of a query (the PE, the MLP's products, for a
+    gradient the input gradient's chain through them)."""
+    if name.startswith("Q"):
+        E, H, B = (model.embedding_size, model.hidden_size,
+                   model.hidden_layers_block)
+        nf = model.max_deg - model.min_deg + 1
+        mlp = 2 * (E * H + 2 * B * H * H + (H + E) * H + H)
+        pe = 2 * 9 + 2 * 21 * 3 + 21 * nf * 2
+        return 0, N * (pe + (2 if name == "Q-grad" else 1) * mlp)
     name = name.removesuffix("-f32")
     nh = model.n_layers - 1
     H = model.hidden_size
@@ -488,6 +525,8 @@ def byte_count(name, model, N, R):
     name = name.removesuffix("-f32")
     L, E = model.n_layers, model.embedding_size
     w = L * 512 * 256 * 4 + L * 256 * 4
+    if name.startswith("Q"):  # points and the transform in, the answer out
+        return N * 12 + 64 + w + N * (12 if name == "Q-grad" else 4)
     if name == "K4":  # points, surf, valid (one byte each), int64 out
         return N * 3 * 4 + R * 3 * 4 + R + N * 8
     if name == "K2":
@@ -623,13 +662,14 @@ class Setup:
         self.pe, self.cos_b, self.dxs, self.dproj2 = M._pe_factored(
             self.x["pts"], self.model, self.T)
 
-    def row(self, torch, name, max_abs, fn, plain):
+    def row(self, torch, name, max_abs, fn, plain, n=None):
         call_ms = time_ms(torch, fn, 20)
         ms, parts = device_ms(torch, name, fn, 20)
         plain_ms = time_ms(torch, plain, 3)
         from isdf_tpu_torch.models.cuda_mlp import SPLIT_TERMS
-        fb, ff = flop_count(name, self.model, self.N, self.R)
-        nbytes = byte_count(name, self.model, self.N, self.R)
+        n = n or self.N
+        fb, ff = flop_count(name, self.model, n, self.R)
+        nbytes = byte_count(name, self.model, n, self.R)
         t_bytes = nbytes / PEAK_BYTES
         extra = {}
         if name.endswith("-f32"):
@@ -957,7 +997,101 @@ def check_k2_k3(torch, s, which, timed=True):
                                     retain_graph=True))
 
 
+def query_inputs(torch, s):
+    """The query checks' inputs, made once: a scene frame turned about two
+    axes and shifted, Q_POINTS points uniform in a 6 x 4 x 3 m room."""
+    if not hasattr(s, "q_x"):
+        import math
+        a, b = 0.4, -0.3
+        Rz = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                           [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+        Rx = torch.tensor([[1.0, 0.0, 0.0], [0.0, math.cos(b), -math.sin(b)],
+                           [0.0, math.sin(b), math.cos(b)]])
+        T = torch.eye(4)
+        T[:3, :3] = Rx @ Rz
+        T[:3, 3] = torch.tensor([-0.4, 0.25, 0.6])
+        s.q_T = T.cuda()
+        g = torch.Generator().manual_seed(7)
+        s.q_x = ((torch.rand((Q_POINTS, 3), generator=g) - 0.5)
+                 * torch.tensor([6.0, 4.0, 3.0])).cuda().contiguous()
+    return s.q_x, s.q_T
+
+
+def check_query(torch, s, which, timed=True):
+    """The query kernel in one mode (Q-sdf: values; Q-grad: spatial
+    gradients) against the eager chain on the same inputs; timed, also one
+    engine request: one launch, one query kernel in its trace."""
+    import numpy as np
+
+    from isdf_tpu_torch.models import cuda_query as CQ
+    from isdf_tpu_torch.models import sdf_mlp as M
+    from isdf_tpu_torch.serve import SDFQueryEngine
+    grad = which == "Q-grad"
+    model, params = s.model, s.params
+    x, T = query_inputs(torch, s)
+    out = torch.empty((Q_POINTS, 3) if grad else (Q_POINTS,), device="cuda")
+
+    def fn():
+        CQ.query_cuda(params, x, model, T, out, grad)
+        return out
+
+    def plain():
+        if grad:
+            return M.sdf_and_grad(params, x, model, transform=T)[1]
+        with torch.no_grad():
+            return M.apply(params, x, model, transform=T)
+
+    k1 = fn().clone()
+    k2 = fn().clone()
+    p = plain()
+    torch.cuda.synchronize()
+    expect(torch.isfinite(k1).all(), f"{which}: non-finite output")
+    max_abs, gap = rel_err(k1, p)
+    cols = ([rel_err(k1[:, c], p[:, c])[1] for c in range(3)] if grad
+            else [])
+    det = torch.equal(k1, k2)
+    print(f"{which}: {'grad' if grad else 'sdf'}_gap {gap:.3e} (max abs "
+          f"{max_abs:.3e}; tol {TOL_Q})" + (
+              ", by column " + ", ".join(f"{c:.3e}" for c in cols)
+              if grad else "") + f"; run-to-run identical: {det}",
+          flush=True)
+    expect(gap <= TOL_Q, f"{which}: disagrees with the eager chain "
+           f"({gap:.3e} > {TOL_Q})")
+    expect(det, f"{which}: two calls gave different bits")
+    if not timed:
+        return None
+    eng = SDFQueryEngine(params=M.copy_params(params), model=model,
+                         transform=T.clone(), chunk_size=Q_POINTS)
+    expect(eng.route == "kernel", f"{which}: the engine routes {eng.route}")
+    pts = x.cpu().numpy()
+    call = eng.grad if grad else eng.sdf
+    key = "query_grad" if grad else "query_sdf"
+    n0 = CQ.LAUNCHES[key]
+    ans = call(pts)
+    launches = CQ.LAUNCHES[key] - n0
+    eng_gap = float(np.abs(ans - p.cpu().numpy()).max()) / max(
+        float(p.abs().max()), 1e-30)
+    names = []
+    for _ in range(TRACE_TRIES):
+        names = [nm for _, _, nm in traced_kernels(
+            torch, lambda: call(pts), 1)]
+        if any("k_query" in nm for nm in names):
+            break
+    n_kernels = sum("k_query" in nm for nm in names)
+    print(f"{which}: one engine request of {Q_POINTS} points: {launches} "
+          f"launch(es), gap {eng_gap:.3e}; its device operations {names}",
+          flush=True)
+    expect(launches == 1 and n_kernels == 1,
+           f"{which}: a request launched {launches} ({n_kernels} traced)")
+    expect(eng_gap <= TOL_Q, f"{which}: the engine's answer disagrees")
+    row = s.row(torch, which, max_abs, fn, plain, n=Q_POINTS)
+    row.update(launches=launches, gap=gap)
+    return row
+
+
 def check(torch, s, name, timed=True):
+    if name.startswith("Q"):
+        return check_query(torch, s, name, timed)
     if name.startswith("K1"):
         return check_k1(torch, s, name, timed)
     if name == "K4":
@@ -2865,12 +2999,14 @@ def capture_stress(torch):
         tr = Trainer(cfg, seed=1)
         planners = Planners(SDFQueryEngine.from_trainer(tr)).start()
         err = None
+        t_run = time.perf_counter()
         try:
             (lg,) = _keyed_run(torch, [tr], GRAPH_CUTS["graph"])
             torch.cuda.synchronize()
         except Exception as e:   # reported below
             err, lg = repr(e), None
         finally:
+            run_s = time.perf_counter() - t_run
             planners.stop()
         caps = list(tr.fns.graphs.stats["intervals"]) if tr.fns.graphs \
             else []
@@ -2882,7 +3018,7 @@ def capture_stress(torch):
             steps=tr.steps_taken, captures=len(caps),
             captures_overlapped=sum(hit), queries=len(planners.intervals),
             planner_points=planners.points, loop_error=err,
-            planner_errors=planners.errors, same_bits=same,
+            planner_errors=planners.errors, same_bits=same, run_s=run_s,
             capture_ms=[round(1e3 * (b - a), 3) for a, b in caps])
         print(f"serve [capture stress, {arena}]: {json.dumps(r)}",
               flush=True)
@@ -3051,6 +3187,7 @@ def _watched_once(torch, root, name):
     import threading
 
     from isdf_tpu_torch.engine.trainer import Trainer
+    from isdf_tpu_torch.serve import SDFQueryEngine
     from isdf_tpu_torch.train import train_vis as TVIS
     from isdf_tpu_torch.vis import server as SV
 
@@ -3105,10 +3242,16 @@ def _watched_once(torch, root, name):
         if client.is_alive():
             client.kill()
     expect(res.steps == VIS_STEPS, f"{name}: {res.steps} steps")
-    expect(launches["K1-pc"] == res.steps
-           and all(v == 0 for k, v in launches.items() if k != "K1-pc"),
-           f"{name}: launches {launches}")
     log, planner = seen["clients"]["log"], seen["clients"]["planner"]
+    # the trainer's K1-pc once a step, the planner's /sdf requests the
+    # query kernel once a chunk, and no other kernel
+    chunks = planner["requests"] * -(-PLANNER_POINTS
+                                     // SDFQueryEngine.chunk_size)
+    expect(launches["K1-pc"] == res.steps and chunks >= 1
+           and launches["query_sdf"] == chunks
+           and all(v == 0 for k, v in launches.items()
+                   if k not in ("K1-pc", "query_sdf")),
+           f"{name}: launches {launches}, {chunks} query chunks")
     first_kf = min([t for t, k, c, _ in log if k == "keyframes" and c == 200],
                    default=float("inf"))
     bad = [(k, c) for t, k, c, _ in log if c != 200
@@ -3912,6 +4055,9 @@ def main():
         for fn, usage in ptxas_usage(info["nvcc_log"]).items():
             print(f"ptxas [{name}]: {fn}: {usage}")
 
+    from isdf_tpu_torch.models import cuda_query as CQ
+    print("occupancy [query_mlp], blocks the card holds: k_query_sdf "
+          "{}, k_query_grad {}".format(*CQ._resident(0)), flush=True)
     for lib in ("train_mlp", "train_mlp_f32", "reverse_fused",
                 "reverse_fused_f32"):
         occ = occupancy(nvcc.load(lib), lib)

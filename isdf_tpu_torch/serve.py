@@ -26,16 +26,25 @@ is some 4 MB of JSON, and json holds the interpreter for its whole C call
 as in process.
 
 A query is cut into chunks of ``chunk_size`` points, run on the engine's
-device, gathered there and fetched once. The forward and its gradient are
-the eager ``apply`` / ``sdf_and_grad``, in the map's compute dtype (a
-map trained with ``tpu.compute_dtype: "bfloat16"`` is served in bf16, as
-isdf_tpu serves it). A served map owns a copy
+device into one output tensor there and fetched once. A chunk takes one
+of two routes (``route``, fixed by the map and the device): on a
+CUDA device a float32 map with the icosahedron PE and hidden width 256 is
+answered by one launch of the query kernel a chunk
+(models/cuda_query.py); every other map, and every map on the CPU, by
+the eager ``apply`` / ``sdf_and_grad`` in the map's compute dtype (a map
+trained with ``tpu.compute_dtype: "bfloat16"`` is served in bf16, as
+isdf_tpu serves it). On the card a request's copies and launches run on
+a stream of the engine's own, and the answer comes back through pinned
+memory once an event says the card is done: a training loop in the same
+process then neither queues behind a query nor waits on its copy. A
+served map owns a copy
 of the parameters, since the trainer updates its own in place;
 ``refresh_from_trainer`` swaps in a new copy atomically.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 from dataclasses import dataclass, field
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from isdf_tpu_torch.eval.metrics import chomp_cost, linear_cost
+from isdf_tpu_torch.models import cuda_query as CQ
 from isdf_tpu_torch.models import sdf_mlp as M
 from isdf_tpu_torch.utils.device import resolve_device
 from isdf_tpu_torch.utils.graphs import CAPTURE_LOCK
@@ -108,6 +118,14 @@ class SDFQueryEngine:
     def __post_init__(self):
         self._lock = threading.Lock()
         self.device = self.transform.device
+        self.route = ("kernel" if CQ.supports(self.model, self.device)
+                      else "eager")
+        # a request's copies and launches run on a stream of the engine's
+        # own: on the caller's current stream, the legacy default stream,
+        # which a training loop in this process also uses, every op of the
+        # loop waited for every query queued before it
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------- build
     @classmethod
@@ -170,8 +188,9 @@ class SDFQueryEngine:
     def _chunked(self, pts, grad: bool) -> np.ndarray:
         """Traced, a request is the span ``serve.request`` with the children
         ``serve.validate``, ``serve.lock`` (waiting for CAPTURE_LOCK),
-        ``serve.copy_in``, ``serve.compute`` (the launches) and
-        ``serve.fetch`` (the copy back, which waits for the card)."""
+        ``serve.copy_in``, ``serve.compute`` (the launches, counting
+        ``kernel_chunks`` and ``eager_chunks``) and ``serve.fetch`` (the
+        copy back, which waits for the card)."""
         with span("serve.request", grad=int(grad)) as req:
             with span("serve.validate"):
                 pts = np.ascontiguousarray(pts, np.float32)
@@ -197,25 +216,47 @@ class SDFQueryEngine:
             # (utils/graphs)
             with span("serve.lock"):
                 CAPTURE_LOCK.acquire()
+            kernel = self.route == "kernel"
+            chunk = CQ.query_cuda if kernel else CQ.query_plain
             try:
-                with span("serve.copy_in"):
-                    x = torch.from_numpy(pts).to(self.device)
-                out = []
-                with span("serve.compute"):
-                    for i in range(0, n, K):
-                        if grad:
-                            out.append(M.sdf_and_grad(
-                                params, x[i:i + K], self.model,
-                                transform=transform)[1])
-                        else:
-                            with torch.no_grad():
-                                out.append(M.apply(params, x[i:i + K],
-                                                   self.model,
-                                                   transform=transform))
-                with span("serve.fetch"):
-                    return torch.cat(out).cpu().numpy()
+                with self._on_stream():
+                    with span("serve.copy_in"):
+                        x = torch.from_numpy(pts).to(self.device)
+                    out = torch.empty((n, 3) if grad else (n,),
+                                      device=self.device)
+                    with span("serve.compute") as sp:
+                        for i in range(0, n, K):
+                            chunk(params, x[i:i + K], self.model, transform,
+                                  out[i:i + K], grad)
+                        chunks = -(-n // K)
+                        sp.count(kernel_chunks=chunks if kernel else 0,
+                                 eager_chunks=0 if kernel else chunks)
+                    with span("serve.fetch"):
+                        if self._stream is None:
+                            return out.cpu().numpy()
+                        # into pinned memory, then a wait on an event: a
+                        # copy into pageable memory waits for the kernel
+                        # inside the copy call, and a loop beside
+                        # back-to-back planners ran some 5x slower for it
+                        host = torch.empty(out.shape, pin_memory=True)
+                        host.copy_(out, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record()
+                        done.synchronize()
+                        return host.numpy().copy()
             finally:
                 CAPTURE_LOCK.release()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """The engine's stream, after the work the caller's stream has
+        queued (the served copy of the parameters among it)."""
+        if self._stream is None:
+            yield
+            return
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            yield
 
     def sdf(self, pts) -> np.ndarray:
         """SDF values [N] (metres) at world points [N, 3]."""
@@ -246,6 +287,7 @@ class SDFQueryEngine:
                 "chunk_size": self.chunk_size,
                 "max_points": MAX_POINTS,
                 "device": str(self.device),
+                "route": self.route,
                 **self.meta}
 
 

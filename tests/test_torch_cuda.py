@@ -15,7 +15,11 @@ rows apart, and a layer's bias) 1.5e-3 of its own largest magnitude (read:
 1.4e-4 for K1, 1.0e-4 for K3), K2's raw sdf and each column of d raw/dx
 7e-2 of their largest magnitude (read: 6.4e-3; single points sit on bf16
 rounding boundaries, see PERF.md), K4's indices exactly. chip_smoke.py
-holds the full-size calls (N = 27,000).
+holds the full-size calls (N = 27,000). The query kernel
+(csrc/query_mlp.cu) in both modes against the eager chain in float32 (TF32
+off), through the serve engine: max |kernel - eager| over the largest
+|eager| of the request, TOL_QUERY, about 10x the largest gap an H100 read
+over these cases (values 6.3e-7, gradients 1.9e-6, at n = 37 and 1).
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from isdf_tpu_torch.models import cuda_mlp as K
+from isdf_tpu_torch.models import cuda_query as CQ
 from isdf_tpu_torch.models import cuda_reverse_fused as CRF
 from isdf_tpu_torch.models import sdf_mlp as TM
 from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
@@ -33,6 +38,7 @@ KW = dict(loss_type="L1", trunc_distance=0.29365022, trunc_weight=5.3834402,
           orien_loss=False)
 TOL_SUMS_REL, TOL_PLOSS, TOL_GRAD = 1.5e-4, 5e-3, 1.5e-3
 TOL_RAW = 7e-2
+TOL_QUERY = 2e-5
 
 
 def _inputs(device, R=200, S=27, seed=0):
@@ -375,7 +381,8 @@ def test_wrapper_refuses_cpu_tensors():
 
 
 def test_new_wrappers_refuse_cpu_tensors():
-    """K4's and K2/K3's kernel paths take CUDA tensors only."""
+    """K4's, K2/K3's and the query kernel's paths take CUDA tensors
+    only."""
     model, params, T, x = _setup("cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         CB.closest_surface_ix_cuda(x["pts"], x["surf"], x["surf_valid"])
@@ -388,6 +395,117 @@ def test_new_wrappers_refuse_cpu_tensors():
             model, free_space_factor=5.0, **KW), None, Tc, None, x["valid"],
             x["noise"], x["inv_count"], bounds=x["bounds"], gt=x["gt"],
             pe=pe)
+    for grad in (False, True):
+        out = torch.empty((x["pts"].shape[0], 3) if grad
+                          else x["pts"].shape[0])
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            CQ.query_cuda(params, x["pts"], model, T, out, grad)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        CQ.query_preact(params, x["pts"], model, T)
+
+
+def _query_case(n, chunk):
+    """The serve engine on the card over a seeded map with a scene frame
+    turned about two axes and shifted, and n points in a 6 x 4 x 3 m room."""
+    import math
+
+    from isdf_tpu_torch.serve import SDFQueryEngine
+    model = TM.SDFModel()
+    params = TM.init_params(torch.Generator().manual_seed(0), model,
+                            device="cuda")
+    a, b = 0.4, -0.3
+    Rz = torch.tensor([[math.cos(a), -math.sin(a), 0.0],
+                       [math.sin(a), math.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    Rx = torch.tensor([[1.0, 0.0, 0.0], [0.0, math.cos(b), -math.sin(b)],
+                       [0.0, math.sin(b), math.cos(b)]])
+    T = torch.eye(4)
+    T[:3, :3] = Rx @ Rz
+    T[:3, 3] = torch.tensor([-0.4, 0.25, 0.6])
+    pts = ((np.random.default_rng(n).random((n, 3)) - 0.5)
+           * [6.0, 4.0, 3.0]).astype(np.float32)
+    eng = SDFQueryEngine(params=params, model=model, transform=T.cuda(),
+                         chunk_size=chunk)
+    return eng, pts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("chunk", [64, 65536])
+@pytest.mark.parametrize("n", [1, 37, 4097, 65536 + 129])
+def test_query_kernel_matches_eager_on_card(n, chunk, grad):
+    """The engine's kernel route, one launch a chunk, against the eager
+    apply / sdf_and_grad on the same map, in chunks of at most 65,536."""
+    _need_card()
+    eng, pts = _query_case(n, chunk)
+    assert eng.route == "kernel"
+    key = "query_grad" if grad else "query_sdf"
+    n0 = CQ.LAUNCHES[key]
+    got = torch.as_tensor(eng.grad(pts) if grad else eng.sdf(pts))
+    assert CQ.LAUNCHES[key] - n0 == -(-n // chunk)
+    x = torch.as_tensor(pts, device="cuda")
+    want = []
+    for i in range(0, n, 65536):
+        if grad:
+            want.append(TM.sdf_and_grad(eng.params, x[i:i + 65536],
+                                        eng.model,
+                                        transform=eng.transform)[1])
+        else:
+            with torch.no_grad():
+                want.append(TM.apply(eng.params, x[i:i + 65536], eng.model,
+                                     transform=eng.transform))
+    want = torch.cat(want).cpu()
+    gap = _rel(got, want)
+    print(f"query {key} n {n} chunk {chunk}: gap {gap:.3e}")
+    assert gap <= TOL_QUERY, f"{key} n {n} chunk {chunk}: gap {gap:.3e}"
+
+
+@pytest.mark.cuda
+def test_query_kernel_preactivations_are_the_eager_chains_bits():
+    """Each hidden layer's pre-activation in the query kernel (a W + b,
+    before the softplus) equals the eager chain's bit for bit at the serve
+    engine's chunk of 65,536 points, and its values are the serving
+    kernel's. The gradient rests on it: at a pre-activation of exactly 0
+    the derivative is 1, where the sigmoid gives 1/2, so a sum that cancels
+    in one chain and not in the other moves that point's gradient by a few
+    percent. It holds while the card's f32 GEMMs sum as the kernel does; a
+    library that sums otherwise fails here."""
+    _need_card()
+    eng, pts = _query_case(65536, 65536)
+    model, params, T = eng.model, eng.params, eng.transform
+    x = torch.as_tensor(pts, device="cuda")
+    vals, z = CQ.query_preact(params, x, model, T)
+    served = torch.empty_like(vals)
+    CQ.query_cuda(params, x, model, T, served, False)
+    with torch.no_grad():
+        pe = model.encode(params, x, transform=T)
+        h, want = pe, []
+        for l, (w, b) in enumerate(TM.unpack(params, model)[:-1]):
+            if l == model.cat_idx:
+                h = torch.cat([h, pe], dim=-1)
+            want.append(h @ w + b)
+            h = TM.softplus_b100(want[-1])
+    torch.cuda.synchronize()
+    rows = [(int((z[l] != zw).sum()), int((zw == 0).sum()),
+             int((z[l] == 0).sum())) for l, zw in enumerate(want)]
+    print("pre-activations by layer (differing, eager zeros, kernel zeros):",
+          rows)
+    assert torch.equal(vals, served)
+    assert all(d == 0 for d, _, _ in rows), rows
+
+
+@pytest.mark.cuda
+def test_engine_reads_what_the_callers_stream_wrote_before_it():
+    """The engine runs a request on a stream of its own, after the work
+    the caller's stream has queued: a head bias written there behind some
+    30 ms of other work is the one the next request reads."""
+    _need_card()
+    eng, pts = _query_case(4097, 65536)
+    before = eng.sdf(pts)
+    torch.cuda._sleep(50_000_000)
+    eng.params["bp"][-1, 0] += 1.0
+    after = eng.sdf(pts)
+    np.testing.assert_allclose(after, before + eng.model.scale_output,
+                               rtol=0, atol=1e-5 * eng.model.scale_output)
 
 
 def test_plain_version_on_cpu_never_counts_a_launch():

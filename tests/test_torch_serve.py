@@ -81,6 +81,48 @@ def test_engine_multi_chunk_path(trained):
                                atol=1e-5)
 
 
+def _shipped_model(**changes):
+    """The published replicaCAD.json's map (H 256, E 255, two blocks a
+    side), as the benchmark's query cell builds it, with ``changes``."""
+    import dataclasses
+    import os
+
+    from isdf_tpu_torch.utils.config import load_config
+    c = load_config(os.path.join(os.path.dirname(TM.__file__), "..", "train",
+                                 "configs", "replicaCAD.json"))
+    model = TM.SDFModel(
+        embedding_size=c.embedding_size, hidden_size=c.hidden_feature_size,
+        hidden_layers_block=c.hidden_layers_block,
+        scale_output=c.scale_output, scale_input=c.scale_input, min_deg=0,
+        max_deg=c.n_embed_funcs, gauss_embed=c.gauss_embed,
+        mm_precision=c.mm_precision, compute_dtype=c.compute_dtype)
+    return dataclasses.replace(model, **changes)
+
+
+@pytest.mark.parametrize("changes,device,route", [
+    ({}, "cuda", "kernel"),
+    ({}, "cpu", "eager"),
+    ({"gauss_embed": True}, "cuda", "eager"),
+    ({"compute_dtype": "bfloat16"}, "cuda", "eager"),
+    ({"hidden_size": 128}, "cuda", "eager"),
+    ({"max_deg": 6, "embedding_size": 297}, "cuda", "eager"),
+])
+def test_query_route(changes, device, route):
+    """The engine's chunk route follows from the map and the device alone
+    (``CQ.supports``): the query kernel for the shipped f32 map on a CUDA
+    device, the eager chain on the CPU, for the Gaussian embedding, bf16
+    hidden layers and widths the kernel is not built for (hidden 128; 297
+    embedding lanes)."""
+    from isdf_tpu_torch.models import cuda_query as CQ
+    model = _shipped_model(**changes)
+    assert CQ.supports(model, torch.device(device)) == (route == "kernel")
+
+
+def test_engine_reports_the_eager_route_on_the_cpu(trained):
+    eng = SDFQueryEngine.from_trainer(trained)
+    assert eng.route == "eager" and eng.info()["route"] == "eager"
+
+
 def test_engine_costs_and_collision(trained):
     eng = SDFQueryEngine.from_trainer(trained)
     pts = _pts(100, seed=2)

@@ -232,6 +232,7 @@ PORT_MODULES = [
     "isdf_tpu_torch.models.cuda_mlp", "isdf_tpu_torch.models.fused_adamw",
     "isdf_tpu_torch.models.fused_vjp",
     "isdf_tpu_torch.models.cuda_reverse_fused",
+    "isdf_tpu_torch.models.cuda_query",
     "isdf_tpu_torch.engine.buffer", "isdf_tpu_torch.engine.step",
     "isdf_tpu_torch.engine.trainer", "isdf_tpu_torch.engine.loop",
     "isdf_tpu_torch.data.frame_store", "isdf_tpu_torch.data.synthetic",

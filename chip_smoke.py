@@ -97,10 +97,10 @@ Phases (any failure is an uncaught exception and a non-zero exit):
      scannet.json, the camera read from the scene info txt and |grid| as
      the GT; (c) record_frames of the synthetic scene at
      realsense_franka_offline.json's camera, then that config on the
-     recording, 300 steps; (d) realsense.json with
-     model.embedding.n_embed_funcs=5 on frames a writer thread drops into
-     its live_dir (a forked watcher process, closed at the end), 300
-     steps. (c) and (d) launch K1-ray once a step and lower the loss. It
+     recording, 300 steps; (d) realsense.json as shipped (E = 381, K1's
+     384-lane build) on frames a writer thread drops into its live_dir (a
+     forked watcher process, closed at the end), 300 steps. (c) launches
+     K1-ray once a step, (d) K1-ray-384, and both lower the loss. It
      prints the per-frame read ms, the fixture write seconds and each
      run's device ms per step;
   9. multi-scene training, its CLI, SDF slices, the batch runner and the
@@ -280,7 +280,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 CONFIG = os.path.join(ROOT, "isdf_tpu_torch", "train", "configs",
                       "synthetic.json")
 SOURCES = ("train_mlp", "bounds_pc", "reverse_fused", "train_mlp_f32",
-           "reverse_fused_f32", "query_mlp")
+           "reverse_fused_f32", "query_mlp", "train_mlp_384")
 REPLACES = {
     "K1-pc": "isdf_tpu/models/pallas_mlp.py:726",
     "K1-ray": "isdf_tpu/models/pallas_mlp.py:685",
@@ -293,6 +293,10 @@ REPLACES = {
 # built with mm_dtype = float32 (pallas_mlp.py:618-620, 836-838)
 F32 = ("K1-pc-f32", "K1-ray-f32", "K1-stream-f32", "K2-f32", "K3-f32")
 REPLACES.update((k, REPLACES[k[:-4]]) for k in F32)
+# K1's 384-lane build (n_embed_funcs 8: E = 381, the live configs), the
+# same call sites with a wider embedding
+W384 = ("K1-pc-384", "K1-ray-384", "K1-stream-384")
+REPLACES.update((k, REPLACES[k[:-4]]) for k in W384)
 # the port's own kernel: isdf_tpu answers a query with one XLA-fused
 # program, no pl.pallas_call
 REPLACES.update((k, "none (isdf_tpu/serve.py:53-70, XLA-fused)")
@@ -305,12 +309,13 @@ KERNEL_NAMES = {"K1-pc": ("k_train_tile", "k_dw", "k_reduce"),
                 "K3": ("k_rf_vjp_tile", "k_dw", "k_reduce"),
                 "K4": ("k_closest_surface",),
                 "Q-sdf": ("k_query_sdf",), "Q-grad": ("k_query_grad",)}
-KERNEL_NAMES.update((k, KERNEL_NAMES[k[:-4]]) for k in F32)
+KERNEL_NAMES.update((k, KERNEL_NAMES[k[:-4]]) for k in F32 + W384)
 SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
              "K1-stream": "train_mlp", "K4": "bounds_pc",
              "K2": "reverse_fused", "K3": "reverse_fused",
              "Q-sdf": "query_mlp", "Q-grad": "query_mlp"}
 SOURCE_OF.update((k, SOURCE_OF[k[:-4]] + "_f32") for k in F32)
+SOURCE_OF.update((k, "train_mlp_384") for k in W384)
 # planted faults, one per kernel of the second slice, two in K1's staged
 # products and a second in K4's group merge: (label, kernel whose check
 # must fail, file, text, faulty)
@@ -392,7 +397,8 @@ def occupancy(lib, source):
     """Resident blocks per SM of the device kernels of an MLP library in
     its product mode (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
-    fn_name, names = OCCUPANCY[source.removesuffix("_f32")]
+    fn_name, names = OCCUPANCY[source.removesuffix("_f32")
+                               .removesuffix("_384")]
     out = (ctypes.c_int * len(names))()
     fn = getattr(lib, fn_name)
     fn.argtypes = [ctypes.c_void_p]
@@ -487,7 +493,9 @@ def grad_blocks(model, dW, db):
 
 def flop_count(name, model, N, R):
     """(bf16, f32) operations of one call, recounted from the kernel's
-    code. Products with a 256x256 matrix per point: K1 3(nh+1) forward,
+    code. The 384-lane rows ("-384") count at the model's fan-ins
+    (benchmark/counts_fanin.py). Products with a 256x256 matrix per
+    point: K1 3(nh+1) forward,
     v-chain and tangent chain (the skip layer twice), 2(nh-1) backward
     chain, 2(nh+1) dW; K2 2(nh+1) forward and v-chain; K3 (nh+1) forward,
     (nh+1) tangent chain, 2(nh-1) backward chain, 2(nh+1) dW. f32: the
@@ -504,6 +512,10 @@ def flop_count(name, model, N, R):
         mlp = 2 * (E * H + 2 * B * H * H + (H + E) * H + H)
         pe = 2 * 9 + 2 * 21 * 3 + 21 * nf * 2
         return 0, N * (pe + (2 if name == "Q-grad" else 1) * mlp)
+    if name.endswith("-384"):
+        from benchmark import counts_fanin as CF
+        return CF.k1_flops(name[:-4], model.n_layers, model.hidden_size,
+                           model.embedding_size, N, R)
     name = name.removesuffix("-f32")
     nh = model.n_layers - 1
     H = model.hidden_size
@@ -522,6 +534,10 @@ def flop_count(name, model, N, R):
 
 def byte_count(name, model, N, R):
     """Each input read once, each output written once."""
+    if name.endswith("-384"):
+        from benchmark import counts_fanin as CF
+        return CF.k1_bytes(name[:-4], model.n_layers, model.hidden_size,
+                           model.embedding_size, N, R)
     name = name.removesuffix("-f32")
     L, E = model.n_layers, model.embedding_size
     w = L * 512 * 256 * 4 + L * 256 * 4
@@ -549,21 +565,27 @@ def stash_bytes(name, model, N):
     three-phase design cannot take less than these bytes over the memory
     rate: its floor, beside the bound of byte_count and flop_count. The
     operand planes (peb, hb, tb, m0b, dzb, dub) are bf16, or f32 in the
-    f32-product mode."""
+    f32-product mode. In the 384-lane build ("-384") pe32, peb and m0b
+    are P = 384 lanes wide, and so are the A sides of k_dw's GEMMs of
+    layer 0 and of the skip layer's pe rows and their partials."""
     from isdf_tpu_torch.models.cuda_mlp import k1_geometry
     f32 = name.endswith("-f32")
-    geo = k1_geometry(N, model.n_layers, f32=f32)
+    P = 384 if name.endswith("-384") else 256
+    geo = k1_geometry(N, model.n_layers, f32=f32, lanes=P)
     nh, H = model.n_layers - 1, model.hidden_size
     o = 4 if f32 else 2  # bytes of an operand
-    write = 4 + o + 4 * nh + o * (nh - 1) + 4 + 4 * nh + o * (nh - 1) + o \
-        + o * nh + o * nh
+    # pe32, peb, m0b at P lanes; sig, hb, h5, u, tb, dzb, dub at H
+    write = (4 + o + o) * P + H * (4 * nh + o * (nh - 1) + 4 + 4 * nh
+                                   + o * (nh - 1) + o * nh + o * nh)
     if name.startswith("K1"):
-        read = 4 * 3 * nh + 4 * nh + 4 + 4 * 2
+        read = H * (4 * 3 * nh + 4 * nh + 4) + 4 * 2 * P
     else:
-        read = 4 * 2 * nh + 4 * nh + 4 + 4
-    read_dw = 2 * o * (2 * nh + 2)
-    partials = 2 * geo["S"] * (nh + 1) * H * H * 4
-    return geo["NP"] * H * (write + read + read_dw) + partials
+        read = H * (4 * 2 * nh + 4 * nh + 4) + 4 * P
+    # the four operands of each GEMM once: A and TA P wide in GEMMs 0 and
+    # nh
+    read_dw = 2 * 2 * o * (P + H) + (nh - 1) * 4 * o * H
+    partials = 2 * geo["S"] * ((nh - 1) * H + 2 * P) * H * 4
+    return geo["NP"] * (write + read + read_dw) + partials
 
 
 def time_ms(torch, fn, reps):
@@ -661,6 +683,22 @@ class Setup:
                                 cfg.orien_loss, 5.0)
         self.pe, self.cos_b, self.dxs, self.dproj2 = M._pe_factored(
             self.x["pts"], self.model, self.T)
+        # the live configs' map: n_embed_funcs 8, E = 381 (K1's 384-lane
+        # build)
+        self.model384 = M.SDFModel(embedding_size=381, max_deg=8,
+                                   mm_precision=cfg.mm_precision)
+        self.params384 = {k: v.cuda() for k, v in M.init_params(
+            torch.Generator().manual_seed(0), self.model384).items()}
+        self.pe384, _, self.dxs384, self.dproj2_384 = M._pe_factored(
+            self.x["pts"], self.model384, self.T)
+
+    def of(self, name):
+        """(model, params, streamed pe, dxs, dproj2) of a kernel row."""
+        if name.endswith("-384"):
+            return (self.model384, self.params384, self.pe384, self.dxs384,
+                    self.dproj2_384)
+        return (self.model32 if name.endswith("-f32") else self.model,
+                self.params, self.pe, self.dxs, self.dproj2)
 
     def row(self, torch, name, max_abs, fn, plain, n=None):
         call_ms = time_ms(torch, fn, 20)
@@ -668,8 +706,9 @@ class Setup:
         plain_ms = time_ms(torch, plain, 3)
         from isdf_tpu_torch.models.cuda_mlp import SPLIT_TERMS
         n = n or self.N
-        fb, ff = flop_count(name, self.model, n, self.R)
-        nbytes = byte_count(name, self.model, n, self.R)
+        model = self.of(name)[0]
+        fb, ff = flop_count(name, model, n, self.R)
+        nbytes = byte_count(name, model, n, self.R)
         t_bytes = nbytes / PEAK_BYTES
         extra = {}
         if name.endswith("-f32"):
@@ -691,7 +730,7 @@ class Setup:
         print(f"{name}: device ms by kernel: " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
         if name.startswith(("K1", "K3")):
-            sb = stash_bytes(name, self.model, self.N)
+            sb = stash_bytes(name, model, self.N)
             print(f"{name}: design floor {1e3 * sb / PEAK_BYTES:.4f} ms "
                   f"(stash {sb / 1e9:.3f} GB at {PEAK_BYTES / 1e12} TB/s)",
                   flush=True)
@@ -713,10 +752,10 @@ def tolerances(name):
 def check_k1(torch, s, name, timed=True):
     from isdf_tpu_torch.models import cuda_mlp as K
     from isdf_tpu_torch.models.sdf_mlp import _pe_consts
-    cfg, x, params = s.cfg, s.x, s.params
+    cfg, x = s.cfg, s.x
     f32 = name.endswith("-f32")
-    model = s.model32 if f32 else s.model
-    base = name.removesuffix("-f32")
+    model, params, pe, dxs, dproj2 = s.of(name)
+    base = name.removesuffix("-f32").removesuffix("-384")
     tol_sums, tol_ploss, tol_grad = tolerances(name)
     op = K.make_train_op(
         model, loss_type=cfg.loss_type, trunc_distance=cfg.trunc_distance,
@@ -735,14 +774,14 @@ def check_k1(torch, s, name, timed=True):
                 x["inv_count"])
         kw = dict(bounds=x["bounds"], gt=x["gt"])
     else:
-        args = (params, s.pe, s.dxs, s.dproj2, x["bounds"], *common, x["gt"],
+        args = (params, pe, dxs, dproj2, x["bounds"], *common, x["gt"],
                 x["inv_count"])
-        kw = dict(bounds=x["bounds"], gt=x["gt"], pe=s.pe)
+        kw = dict(bounds=x["bounds"], gt=x["gt"], pe=pe)
     k_out = op(*args)
     k_again = op(*args)
     torch.cuda.synchronize()
-    M_, dxs, dproj2 = _pe_consts(model, s.T, device="cuda")
-    Tc = K.tangent_rows(model, dxs, dproj2)
+    M_, dxs_, dproj2_ = _pe_consts(model, s.T, device="cuda")
+    Tc = K.tangent_rows(model, dxs_, dproj2_)
 
     def plain():
         return K.train_op_plain(params, model, s.lk, M_, Tc, x["pts"],
@@ -1619,10 +1658,10 @@ def _fixture_cli(torch, label, config, sets, steps, times):
     return summary, vox, tr
 
 
-def _run_cfg(torch, label, cfg, dataset, steps):
+def _run_cfg(torch, label, cfg, dataset, steps, kernel="K1-ray"):
     """The trainer through its entry points (Trainer + train_loop) on
-    ``dataset``, the clock pinned; K1-ray once a step, no other kernel,
-    the loss falling. Returns the summary."""
+    ``dataset``, the clock pinned; ``kernel`` once a step, no other
+    kernel, the loss falling. Returns the summary."""
     from isdf_tpu_torch.engine.loop import train_loop
     from isdf_tpu_torch.engine.trainer import Trainer
     tr = Trainer(cfg, dataset=dataset, seed=1)
@@ -1651,9 +1690,9 @@ def _run_cfg(torch, label, cfg, dataset, steps):
                    device_ms_per_step=1e3 * tr.measured_s / res.steps)
     print(f"data[{label}]: {json.dumps(summary)}", flush=True)
     print(f"data[{label}]: launches {launches}", flush=True)
-    assert launches["K1-ray"] == res.steps == steps, \
-        f"{label}: {launches['K1-ray']} K1-ray launches in {res.steps} steps"
-    assert all(v == 0 for k, v in launches.items() if k != "K1-ray"), \
+    assert launches[kernel] == res.steps == steps, \
+        f"{label}: {launches[kernel]} {kernel} launches in {res.steps} steps"
+    assert all(v == 0 for k, v in launches.items() if k != kernel), \
         f"{label}: other kernels ran"
     assert summary["loss_last"] < summary["loss_first"], \
         f"{label}: the loss did not fall"
@@ -1795,8 +1834,8 @@ def data_phase(torch, root):
     live_dir = os.path.join(root, "live")
     os.makedirs(live_dir)
     cfg = load_config(os.path.join(CONFIG_DIR, "realsense.json"),
-                      overrides=[f"dataset.live_dir={live_dir}",
-                                 "model.embedding.n_embed_funcs=5"])
+                      overrides=[f"dataset.live_dir={live_dir}"])
+    assert cfg.n_embed_funcs == 8, "realsense.json as shipped"
     frames = _camera_frames(torch, cfg.camera, LIVE_FRAMES)
     stop = threading.Event()
 
@@ -1815,7 +1854,7 @@ def data_phase(torch, root):
     ds = make_dataset(cfg)
     try:
         out["realsense_live"] = _run_cfg(torch, "realsense live", cfg,
-                                         ds, 300)
+                                         ds, 300, kernel="K1-ray-384")
     finally:
         stop.set()
         th.join(timeout=10)
@@ -4058,8 +4097,8 @@ def main():
     from isdf_tpu_torch.models import cuda_query as CQ
     print("occupancy [query_mlp], blocks the card holds: k_query_sdf "
           "{}, k_query_grad {}".format(*CQ._resident(0)), flush=True)
-    for lib in ("train_mlp", "train_mlp_f32", "reverse_fused",
-                "reverse_fused_f32"):
+    for lib in ("train_mlp", "train_mlp_f32", "train_mlp_384",
+                "reverse_fused", "reverse_fused_f32"):
         occ = occupancy(nvcc.load(lib), lib)
         print(f"occupancy [{lib}], resident blocks per SM: " + ", ".join(
             f"{k} {v}" for k, v in occ.items()), flush=True)
@@ -4159,6 +4198,9 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         # ---- phase 8: the real-data formats ----
         readings["data"], rc_cfg = data_phase(torch, work)
+        # the live config's K1-ray-384, once a step
+        by_name["K1-ray-384"]["launches"] = \
+            readings["data"]["realsense_live"]["steps"]
         # ---- phase 9: multi-scene training, its CLI, slices, the batch
         # runner and the figure readers ----
         t9 = time.perf_counter()

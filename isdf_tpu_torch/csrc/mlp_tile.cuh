@@ -82,6 +82,22 @@
 // k1_variants.py's f32_hh and f32_nomma against the shipped kernel; PERF.md,
 // section 6).
 //
+// The PE's lanes (MLP_LANES, LANES below): 256, or 384 where the embedding
+// is wider than 256 (n_embed_funcs 8, E = 381: iSDF's live configs), set by
+// train_mlp_384.cu, in the bf16 mode of K1 only. The PE, the combined
+// tangent m0 and d raw / d pe are LANES wide; so are layer 0's rows and
+// the skip layer's pe rows, which sit at LANES:2 LANES of a [L, 2 LANES,
+// 256] plane. Layer 0's products and the skip layer's second segment run
+// LANES / KS slabs deep, and the v-chain's layer-0 product writes LANES
+// columns, LANES / 8 a warp. Shared memory at 384 lanes: X and X2 at a
+// row stride of 392 (100,352 B) and a ring of two [384 n][KS] stages
+// (61,440 B), one block per SM; k_dw adds the 384-row GEMMs of layer 0
+// and of the skip layer's pe rows as two more 128-row output tiles each.
+// At 256 lanes every size is the one above, and the code paths are the
+// ones before the lane count became a constant (a lane a thread, the
+// v-chain's loop whole): peeling layer 0 of the v-chain there, or looping
+// a thread over lanes, cost K1 4% in spills (PERF.md, section 6).
+//
 // No atomics anywhere: every result is the same on every run.
 
 #pragma once
@@ -98,6 +114,10 @@ typedef __nv_bfloat162 bf162;
 #ifndef MLP_F32
 #define MLP_F32 0
 #endif
+#ifndef MLP_LANES
+#define MLP_LANES 256
+#endif
+#define LANES MLP_LANES
 
 #if MLP_F32
 typedef float op_t;  // activation tiles and dW operand planes
@@ -116,20 +136,28 @@ typedef bf16 wt_t;
 #define DW_LD 136
 #define MIN_BLOCKS 2
 #endif
-#define LDX 264      // activation tile row stride (elements)
+#define LDX (LANES + 8)  // activation tile row stride (elements)
 #define DW_NSTAGE 3  // k_dw ring stages
 #define CHUNK (16 / (int)sizeof(op_t))  // elements of one 16-byte cp.async
 #define WCHUNK (16 / (int)sizeof(wt_t))  // ... of the weights
 
 #define HID 256
-#define CATW 512
+#define CATW (2 * LANES)  // rows of a layer's weight plane
 #define TM 64
 #define NTHR 256
-#define LDO 260    // f32 row-reduction tile row stride (elements)
+// resident blocks per SM of the tile kernels: X, X2 and the ring of the
+// 384-lane build leave room for one
+#define TILE_BLOCKS (LANES > HID ? 1 : MIN_BLOCKS)
+#define LDO (LANES + 4)  // f32 row-reduction tile row stride (elements)
 #define KS 32      // weight rows (k) per ring stage
 #define NSTAGE 2   // ring stages
-#define LDT (KS + 8)  // row stride of a transposed weight slab [256 n][KS k]
-#define STAGE_ELEMS (HID * LDT)  // >= KS * LDW, the plain slab [KS k][256 n]
+#define LDT (KS + 8)  // row stride of a transposed weight slab [n][KS k]
+// >= KS * LDW, the plain slab [KS k][256 n]; a transposed slab has up to
+// LANES rows n (the v-chain's layer 0)
+#define STAGE_ELEMS (LANES * LDT)
+
+static_assert(LANES == HID || (LANES == 384 && !MLP_F32),
+              "the PE takes 256 lanes, or 384 in the bf16 mode");
 #define HALF_PI 1.57079637050628662109375f  // float32(pi / 2)
 #define ROWS_IN_FLIGHT 8  // global loads issued together in a per-row pass
 
@@ -143,10 +171,10 @@ struct Args {
   // pc surface set: sp [4, R] (rows 0..2 = -2 s, row 3 = |s|^2 + penalty),
   // surf [R, 3]
   const float *sp, *surf;
-  // constants: Mc [4, 256] PE plane, Tc [3, 256] tangent rows,
+  // constants: Mc [4, LANES] PE plane, Tc [3, LANES] tangent rows,
   // b [L, 256] biases (b[L-1][0] = output bias), w_out [256], inv_count [1]
   const float *Mc, *Tc, *b, *w_out, *inv_count;
-  const wt_t *W;  // [L, 512, 256]
+  const wt_t *W;  // [L, 2 LANES, 256]
   // outputs
   float *ploss, *sums, *dW, *db;
   // scratch
@@ -360,12 +388,12 @@ __device__ __forceinline__ Tile tile_of(unsigned char *smem) {
   return t;
 }
 
-template <int MT>
-__device__ __forceinline__ void acc_zero(float (&acc)[MT][4][4]) {
+template <int MT, int NT>
+__device__ __forceinline__ void acc_zero(float (&acc)[MT][NT][4]) {
 #pragma unroll
   for (int i = 0; i < MT; i++)
 #pragma unroll
-    for (int jn = 0; jn < 4; jn++)
+    for (int jn = 0; jn < NT; jn++)
 #pragma unroll
       for (int e = 0; e < 4; e++) acc[i][jn][e] = 0.f;
 }
@@ -387,24 +415,57 @@ __device__ __forceinline__ void acc_add(float (&acc)[MT][4][4], int i0,
 }
 #endif
 
-// The weights of one product: segment 0 is W0, segment 1 (nseg == 2) W1;
-// each is a 256x256 block of row stride 256.
+// The weights of one product: segment 0 is W0, segment 1 (nseg == 2) W1,
+// blocks of row stride 256. A segment is 256 rows deep, or LANES where
+// its rows are the PE's (pe0, pe1: layer 0's rows and the skip layer's pe
+// rows, in a plain product); a transposed product's segments are 256 deep.
 struct Prod {
   const wt_t *W0, *W1;
   int nseg;
+  bool pe0, pe1;
 };
 
+// The k-slabs of a segment; of a product; whether slab s is of segment 1;
+// slab s's first k-row in its segment. At 256 lanes every segment is 256
+// deep.
+__device__ __forceinline__ int seg_slabs(bool pe) {
+  return (pe ? LANES : HID) / KS;
+}
+
+__device__ __forceinline__ int prod_slabs(const Prod &p) {
+#if LANES > HID
+  return seg_slabs(p.pe0) + (p.nseg == 2 ? seg_slabs(p.pe1) : 0);
+#else
+  return p.nseg * (HID / KS);
+#endif
+}
+
+__device__ __forceinline__ bool slab_second(const Prod &p, int s) {
+#if LANES > HID
+  return s >= seg_slabs(p.pe0);
+#else
+  return s >= HID / KS;
+#endif
+}
+
+__device__ __forceinline__ int slab_k0(const Prod &p, int s) {
+#if LANES > HID
+  return (slab_second(p, s) ? s - seg_slabs(p.pe0) : s) * KS;
+#else
+  return (s % (HID / KS)) * KS;
+#endif
+}
+
 // Slab s of a product's weights into its ring stage: [KS k][256 n] or,
-// with TRANS, [256 n][KS k]; then one cp.async group, empty past the end.
-template <bool TRANS>
+// with TRANS, [NC n][KS k]; then one cp.async group, empty past the end.
+template <bool TRANS, int NC = HID>
 __device__ __forceinline__ void ring_issue(const Prod &p, int s, const Tile &t) {
-  const int SPS = HID / KS;  // slabs per segment
-  if (s < p.nseg * SPS) {
-    const wt_t *W = s < SPS ? p.W0 : p.W1;
-    const int k0 = (s % SPS) * KS;
+  if (s < prod_slabs(p)) {
+    const wt_t *W = slab_second(p, s) ? p.W1 : p.W0;
+    const int k0 = slab_k0(p, s);
     wt_t *dst = t.ring + (s % NSTAGE) * STAGE_ELEMS;
 #pragma unroll
-    for (int c = t.tid; c < HID * KS / WCHUNK; c += NTHR) {
+    for (int c = t.tid; c < (TRANS ? NC : HID) * KS / WCHUNK; c += NTHR) {
       if (TRANS) {  // KS / WCHUNK chunks of 16 bytes a row
         const int n = c / (KS / WCHUNK), h = c % (KS / WCHUNK);
         cp_async16(dst + n * LDT + h * WCHUNK,
@@ -470,38 +531,40 @@ __device__ __forceinline__ void split_a(uint32_t (&af)[MT][3][4],
 // Starts a product's weight stream: its first NSTAGE - 1 slabs. Called
 // once the ring is free (after the barrier that ends the previous
 // product's k-loop), so the loads run under the epilogue in between.
-template <bool TRANS>
+template <bool TRANS, int NC = HID>
 __device__ __forceinline__ void ring_prime(const Prod &p, const Tile &t) {
 #pragma unroll
-  for (int s = 0; s < NSTAGE - 1; s++) ring_issue<TRANS>(p, s, t);
+  for (int s = 0; s < NSTAGE - 1; s++) ring_issue<TRANS, NC>(p, s, t);
 }
 
-// Rows m0row .. m0row + 16 MT - 1 of the product, columns n0..n0+31 of the
-// warp, accumulated in registers, after ring_prime<TRANS>(p):
+// Rows m0row .. m0row + 16 MT - 1 of the product, the warp's NT n-tiles of
+// 8 columns (from column 8 NT warp), accumulated in registers, after
+// ring_prime<TRANS, NC>(p):
 //   !DUAL: acc += X0 @ B(W0) [+ X1 @ B(W1) when nseg == 2]
 //    DUAL: acc += X0 @ B(W0), acc2 += X1 @ B(W0)
-// with B(W) = W (row-major [256 k][256 n]) or, with TRANS, W^T (W read as
-// [256 n][256 k]). The weights stream through the ring in slabs of KS
-// k-rows: cp.async by all threads, NSTAGE - 1 slabs in flight, one barrier
-// per slab. Ends with every cp.async group retired; the caller puts a
-// barrier before anything overwrites X0/X1 or the ring.
-template <bool TRANS, int MT, bool DUAL>
-__device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
-                                          float (&acc2)[MT][4][4],
+// with B(W) = W (row-major [k][256 n]) or, with TRANS, W^T (W read as
+// [NC n][256 k]; NC = 64 NT). The weights stream through the ring in
+// slabs of KS k-rows: cp.async by all threads, NSTAGE - 1 slabs in flight,
+// one barrier per slab. Ends with every cp.async group retired; the caller
+// puts a barrier before anything overwrites X0/X1 or the ring.
+template <bool TRANS, int MT, bool DUAL, int NT = 4, int NC = HID>
+__device__ __forceinline__ void mm_stream(float (&acc)[MT][NT][4],
+                                          float (&acc2)[MT][NT][4],
                                           const op_t *X0, const op_t *X1,
                                           const Prod &p, int m0row,
                                           const Tile &t) {
-  const int SPS = HID / KS;
-  const int nslab = p.nseg * SPS;
+  static_assert(NC == 64 * NT, "8 warps of NT n-tiles cover the columns");
+  const int nslab = prod_slabs(p);
   const int lane = t.lane;
   for (int s = 0; s < nslab; s++) {
     cp_async_wait<NSTAGE - 2>();  // slab s has landed for this thread
     __syncthreads();              // ... for all; slab s - 1's stage is free
-    ring_issue<TRANS>(p, s + NSTAGE - 1, t);
+    ring_issue<TRANS, NC>(p, s + NSTAGE - 1, t);
     const wt_t *S = t.ring + (s % NSTAGE) * STAGE_ELEMS;
-    const int kk = (s % SPS) * KS;
-    const op_t *XA = (!DUAL && s >= SPS) ? X1 : X0;
+    const int kk = slab_k0(p, s);
+    const op_t *XA = (!DUAL && slab_second(p, s)) ? X1 : X0;
 #if MLP_F32
+    static_assert(NT == 4, "the f32 mode's products are 256 columns wide");
     // split-bf16 products: B(W) and A's rows split in registers (A MG
     // m-tiles at a time), the six cross terms into a fresh fragment added
     // to the running one
@@ -528,11 +591,11 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
 #else
 #pragma unroll
     for (int k16 = 0; k16 < KS; k16 += 16) {
-      uint32_t b[4][2];
+      uint32_t b[NT][2];
 #pragma unroll
-      for (int pp = 0; pp < 2; pp++) {
+      for (int pp = 0; pp < NT / 2; pp++) {
         uint32_t r[4];
-        const int nb = t.n0 + 16 * pp;
+        const int nb = (NT == 4 ? t.n0 : t.warp * 8 * NT) + 16 * pp;
         if (TRANS)
           ldsm_x4(r, S + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDT + k16 +
                          ((lane >> 3) & 1) * 8);
@@ -548,11 +611,11 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
         uint32_t af[4];
         ldsm_x4(af, XA + ar);
 #pragma unroll
-        for (int jn = 0; jn < 4; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
+        for (int jn = 0; jn < NT; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
         if (DUAL) {
           ldsm_x4(af, X1 + ar);
 #pragma unroll
-          for (int jn = 0; jn < 4; jn++)
+          for (int jn = 0; jn < NT; jn++)
             mma_bf16(acc2[i][jn], af, b[jn][0], b[jn][1]);
         }
       }
@@ -568,23 +631,24 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][4][4],
 // backward chain's layer l (transposed, main rows only).
 __device__ __forceinline__ Prod prod_fwd(const Args &a, int l) {
   const wt_t *Wl = a.W + (size_t)l * CATW * HID;
-  return Prod{Wl, Wl + HID * HID, l == a.cat ? 2 : 1};
+  return Prod{Wl, Wl + LANES * HID, l == a.cat ? 2 : 1, l == 0, true};
 }
 
 __device__ __forceinline__ Prod prod_vchain(const Args &a, int l) {
   return Prod{a.W + (size_t)l * CATW * HID,
-              a.W + (size_t)a.cat * CATW * HID + HID * HID,
-              (l == 0 && a.cat < a.L - 1) ? 2 : 1};
+              a.W + (size_t)a.cat * CATW * HID + LANES * HID,
+              (l == 0 && a.cat < a.L - 1) ? 2 : 1, false, false};
 }
 
 __device__ __forceinline__ Prod prod_back(const Args &a, int l) {
-  return Prod{a.W + (size_t)l * CATW * HID, nullptr, 1};
+  return Prod{a.W + (size_t)l * CATW * HID, nullptr, 1, false, false};
 }
 
-// pe tile from the streamed plane pe_in [N, E] (zero past row N and column
-// E) into pe32 (f32 scratch), peb (op_t dW operand, when given), X and X2.
-__device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
-  const int j = t.tid;
+// Lane j of the pe tile from the streamed plane pe_in [N, E] (zero past
+// row N and column E) into pe32 (f32 scratch), peb (op_t dW operand, when
+// given), X and X2.
+__device__ __forceinline__ void pe_stream_lane(const Args &a, const Tile &t,
+                                               int j) {
   for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
     float pe[ROWS_IN_FLIGHT];
 #pragma unroll
@@ -595,7 +659,7 @@ __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
 #pragma unroll
     for (int k = 0; k < ROWS_IN_FLIGHT; k++) {
       const int r = rb + k;
-      const size_t o = (size_t)(t.r0 + r) * HID + j;
+      const size_t o = (size_t)(t.r0 + r) * LANES + j;
       a.pe32[o] = pe[k];
       const op_t pb = to_op(pe[k]);
       if (a.peb) a.peb[o] = pb;
@@ -603,6 +667,15 @@ __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
       t.X2[r * LDX + j] = pb;
     }
   }
+}
+
+// The pe tile, a lane a thread (and the lanes past 256 by the first
+// threads again).
+__device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
+  pe_stream_lane(a, t, t.tid);
+#if LANES > HID
+  if (t.tid < LANES - NTHR) pe_stream_lane(a, t, t.tid + NTHR);
+#endif
   __syncthreads();
 }
 
@@ -696,6 +769,7 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
     }
   }
   __syncthreads();
+#if LANES == HID
   float acc[4][4][4];
   for (int l = nh - 1; l >= 0; l--) {
     acc_zero(acc);
@@ -734,6 +808,62 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
     }
     __syncthreads();
   }
+#else
+  // the hidden layers' products; layer 0's, LANES columns wide, apart
+  float acc[4][4][4];
+  for (int l = nh - 1; l >= 1; l--) {
+    acc_zero(acc);
+    mm_stream<true, 4, false>(acc, acc, t.X, t.X2, prod_vchain(a, l), 0, t);
+    __syncthreads();
+    if (l > 1) ring_prime<true>(prod_vchain(a, l - 1), t);
+    else ring_prime<true, LANES>(prod_vchain(a, 0), t);
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      float2 sv[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; h++)
+#pragma unroll
+        for (int jn = 0; jn < 4; jn++)
+          sv[h][jn] = ld_f2(a.sig + (l - 1) * plane +
+                            (size_t)(t.r0 + 16 * i + t.g + 8 * h) * HID +
+                            t.n0 + 8 * jn + 2 * t.q);
+#pragma unroll
+      for (int h = 0; h < 2; h++) {
+        const int r = 16 * i + t.g + 8 * h;
+#pragma unroll
+        for (int jn = 0; jn < 4; jn++) {
+          const int c = t.n0 + 8 * jn + 2 * t.q;
+          const float v0 = acc[i][jn][2 * h], v1 = acc[i][jn][2 * h + 1];
+          st_o2(t.X + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
+          if (l - 1 == a.cat)
+            st_o2(t.X2 + r * LDX + c, v0 * sv[h][jn].x, v1 * sv[h][jn].y);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // layer 0: vpe over the PE's LANES columns, NT0 n-tiles a warp, into F
+  {
+    constexpr int NT0 = LANES / 64;
+    float acc0[4][NT0][4];
+    acc_zero(acc0);
+    mm_stream<true, 4, false, NT0, LANES>(acc0, acc0, t.X, t.X2,
+                                          prod_vchain(a, 0), 0, t);
+    __syncthreads();
+    if (then_tangent) ring_prime<false>(prod_fwd(a, 0), t);
+#pragma unroll
+    for (int i = 0; i < 4; i++)
+#pragma unroll
+      for (int h = 0; h < 2; h++) {
+        const int r = 16 * i + t.g + 8 * h;
+#pragma unroll
+        for (int jn = 0; jn < NT0; jn++)
+          st_f2(t.F + r * LDO + t.warp * 8 * NT0 + 8 * jn + 2 * t.q,
+                acc0[i][jn][2 * h], acc0[i][jn][2 * h + 1]);
+      }
+    __syncthreads();
+  }
+#endif
 }
 
 // Spatial gradient g[k] = <cb * vpe, T_k> (IEEE f32), vpe in F.
@@ -742,24 +872,24 @@ __device__ __forceinline__ void tile_spatial_grad(const Args &a, const Tile &t,
                                                   float *g2) {
   const int E = a.E, F = (E - 3) / 2;
   for (int q0 = 0; q0 < TM / 8; q0 += 4) {
-    float cb[4][HID / 32];  // the loads of four rows in flight together
+    float cb[4][LANES / 32];  // the loads of four rows in flight together
 #pragma unroll
     for (int q = 0; q < 4; q++)
 #pragma unroll
-      for (int m = 0; m < HID / 32; m++)
-        cb[q][m] = cb_at(a.pe32 + (size_t)(t.r0 + t.warp * (TM / 8) + q0 + q) * HID,
+      for (int m = 0; m < LANES / 32; m++)
+        cb[q][m] = cb_at(a.pe32 + (size_t)(t.r0 + t.warp * (TM / 8) + q0 + q) * LANES,
                          t.lane + 32 * m, E, F);
 #pragma unroll
     for (int q = 0; q < 4; q++) {
       const int r = t.warp * (TM / 8) + q0 + q;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int m = 0; m < HID / 32; m++) {
+      for (int m = 0; m < LANES / 32; m++) {
         const int k = t.lane + 32 * m;
         float c = cb[q][m] * t.F[r * LDO + k];
         s0 += c * a.Tc[k];
-        s1 += c * a.Tc[HID + k];
-        s2 += c * a.Tc[2 * HID + k];
+        s1 += c * a.Tc[LANES + k];
+        s2 += c * a.Tc[2 * LANES + k];
       }
 #pragma unroll
       for (int off = 16; off; off >>= 1) {
@@ -781,6 +911,32 @@ __device__ __forceinline__ float sum_over_g(float v) {
   return v;
 }
 
+// Lane j of the combined tangent m0 = [dg dxs | cb * (dg dproj2)] into
+// m0b, X and X2.
+__device__ __forceinline__ void m0_lane(const Args &a, const Tile &t, int j,
+                                        const float *dg0, const float *dg1,
+                                        const float *dg2) {
+  const int E = a.E, F = (E - 3) / 2;
+  const float t0 = a.Tc[j], t1 = a.Tc[LANES + j], t2 = a.Tc[2 * LANES + j];
+  for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
+    float cb[ROWS_IN_FLIGHT];
+#pragma unroll
+    for (int k = 0; k < ROWS_IN_FLIGHT; k++)
+      cb[k] = cb_at(a.pe32 + (size_t)(t.r0 + rb + k) * LANES, j, E, F);
+#pragma unroll
+    for (int k = 0; k < ROWS_IN_FLIGHT; k++) {
+      const int r = rb + k;
+      size_t o = (size_t)(t.r0 + r) * LANES + j;
+      float dgT = dg0[r] * t0 + dg1[r] * t1 + dg2[r] * t2;
+      float m0 = j < 3 ? dgT : cb[k] * dgT;
+      const op_t mb = to_op(m0);
+      a.m0b[o] = mb;
+      t.X[r * LDX + j] = mb;
+      t.X2[r * LDX + j] = mb;
+    }
+  }
+}
+
 // Parameter VJP of one tile from the cotangents of raw (draw) and of the
 // spatial gradient (dg0..2), after tile_forward(keep = true), the tangent
 // chain's first product primed in the ring: writes the
@@ -796,26 +952,10 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
   __shared__ float st_col[HID];  // sum over the tile's rows of the last t
 
   // ---- combined tangent m0 = [dg dxs | cb * (dg dproj2)] ----
-  {
-    const float t0 = a.Tc[j], t1 = a.Tc[HID + j], t2 = a.Tc[2 * HID + j];
-    for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
-      float cb[ROWS_IN_FLIGHT];
-#pragma unroll
-      for (int k = 0; k < ROWS_IN_FLIGHT; k++)
-        cb[k] = cb_at(a.pe32 + (size_t)(t.r0 + rb + k) * HID, j, E, F);
-#pragma unroll
-      for (int k = 0; k < ROWS_IN_FLIGHT; k++) {
-        const int r = rb + k;
-        size_t o = (size_t)(t.r0 + r) * HID + j;
-        float dgT = dg0[r] * t0 + dg1[r] * t1 + dg2[r] * t2;
-        float m0 = j < 3 ? dgT : cb[k] * dgT;
-        const op_t mb = to_op(m0);
-        a.m0b[o] = mb;
-        t.X[r * LDX + j] = mb;
-        t.X2[r * LDX + j] = mb;
-      }
-    }
-  }
+  m0_lane(a, t, j, dg0, dg1, dg2);
+#if LANES > HID
+  if (j < LANES - NTHR) m0_lane(a, t, j + NTHR, dg0, dg1, dg2);
+#endif
   __syncthreads();
 
   // ---- tangent chain: u_l = t_{l-1} W_l, t_l = u_l sig_l ----
@@ -983,9 +1123,10 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
 }
 
 // Phase 2: split-K dW GEMMs, dW_g = [A; TA]^T [DZ; DU] over the rows
-// rb..re of split s. grid (4 output tiles of 128x128, nh + 1 GEMMs, S
-// splits), 8 warps of 64x32. GEMM g < nh: layer g rows 0:256; g == nh: the
-// skip layer's pe rows 256:512. Slabs of DW_KS rows of the four operands
+// rb..re of split s. grid (LANES / 64 output tiles of 128x128, nh + 1
+// GEMMs, S splits), 8 warps of 64x32. GEMM g < nh: layer g rows 0:256
+// (layer 0: 0:LANES); g == nh: the skip layer's pe rows LANES:2 LANES. A
+// GEMM of 256 rows leaves the tiles past them to return at once. Slabs of DW_KS rows of the four operands
 // (128 columns each) come in by cp.async through a DW_NSTAGE ring; the
 // A-side fragments by ldmatrix.trans (A is stored [row][i]), the B side
 // by ldmatrix.trans ([row][j] is k-major); in the f32 mode the same from
@@ -998,11 +1139,16 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
   const int wi = (warp >> 2) * 64, wj = (warp & 3) * 32;
   const size_t plane = (size_t)a.NP * HID;
   const int l = g < nh ? g : a.cat;
+  // the A side is the PE's (LANES rows of dW, pe and m0 of row stride
+  // LANES) or a hidden layer's (256)
+  const bool pe_rows = g == nh || l == 0;
+  if (LANES > HID && !pe_rows && ib >= HID) return;
+  const int lda = pe_rows ? LANES : HID;
   const op_t *ops[4];
-  ops[0] = (g == nh || l == 0) ? a.peb : a.hb + (l - 1) * plane;   // A
-  ops[1] = (g == nh || l == 0) ? a.m0b : a.tb + (l - 1) * plane;   // TA
-  ops[2] = a.dzb + l * plane;                                      // DZ
-  ops[3] = a.dub + l * plane;                                      // DU
+  ops[0] = pe_rows ? a.peb : a.hb + (l - 1) * plane;   // A
+  ops[1] = pe_rows ? a.m0b : a.tb + (l - 1) * plane;   // TA
+  ops[2] = a.dzb + l * plane;                          // DZ
+  ops[3] = a.dub + l * plane;                          // DU
   const int rb = s * a.rps, re = min(rb + a.rps, a.NP);
   const int nslab = max(re - rb, 0) / DW_KS;
 
@@ -1099,8 +1245,8 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
         for (int c = tid; c < DW_KS * (DW_T / CHUNK); c += NTHR) {
           const int r = c / (DW_T / CHUNK), h = c % (DW_T / CHUNK);
           cp_async16(dst + (op * DW_KS + r) * DW_LD + h * CHUNK,
-                     ops[op] + (row0 + r) * HID + (op < 2 ? ib : jb) +
-                         h * CHUNK);
+                     ops[op] + (row0 + r) * (op < 2 ? lda : HID) +
+                         (op < 2 ? ib : jb) + h * CHUNK);
         }
     }
     cp_async_commit();
@@ -1140,7 +1286,7 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
   }
   cp_async_wait<0>();
 #endif
-  float *out = a.part_dw + ((size_t)s * (nh + 1) + g) * HID * HID;
+  float *out = a.part_dw + ((size_t)s * (nh + 1) + g) * LANES * HID;
 #pragma unroll
   for (int i = 0; i < 4; i++)
 #pragma unroll
@@ -1152,7 +1298,7 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS) k_dw(Args a) {
               acc[i][jn][2 * h], acc[i][jn][2 * h + 1]);
 }
 
-// Phase 3: fixed-order sums of the partials into dW [L,512,256],
+// Phase 3: fixed-order sums of the partials into dW [L, 2 LANES, 256],
 // db [L,256] and (when sums is given) the five loss sums. Every output
 // element is written: padded rows and columns get exact zeros. The first
 // n_dw threads take one dW element each (a sum over the S splits); after
@@ -1171,11 +1317,11 @@ static __global__ void k_reduce(Args a, int n_tiles) {
     float s = 0.f;
     if (l < nh) {
       int g = -1, ii = i;
-      if (i < HID) g = l;
-      else if (l == a.cat) { g = nh; ii = i - HID; }
+      if (i < (l == 0 ? LANES : HID)) g = l;
+      else if (l == a.cat && i >= LANES) { g = nh; ii = i - LANES; }
       if (g >= 0)
         for (int k = 0; k < a.S; k++)
-          s += a.part_dw[(((size_t)k * (nh + 1) + g) * HID + ii) * HID + j];
+          s += a.part_dw[(((size_t)k * (nh + 1) + g) * LANES + ii) * HID + j];
     }
     a.dW[idx] = s;
     return;
@@ -1240,7 +1386,7 @@ static inline int launch_dw_reduce(const Args &a, cudaStream_t st) {
   static unsigned long long attr_set = 0;
   if (first_on_device(&attr_set)) allow_smem(k_dw, SMEM_DW);
   const int n_tiles = a.NP / TM;
-  dim3 gdw((HID / DW_T) * (HID / DW_T), a.L, a.S);  // nh + 1 == L GEMMs
+  dim3 gdw((LANES / DW_T) * (HID / DW_T), a.L, a.S);  // nh + 1 == L GEMMs
   k_dw<<<gdw, NTHR, SMEM_DW, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

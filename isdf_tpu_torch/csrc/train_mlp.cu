@@ -61,15 +61,43 @@
 // The per-tile stages and phases 2-3 live in mlp_tile.cuh, shared with the
 // reverse-fused op (reverse_fused.cu). train_mlp_f32.cu builds this file
 // in the f32-product mode of mlp_tile.cuh (MLP_F32), isdf_tpu's
-// mm_dtype = float32 variant of the same kernel.
+// mm_dtype = float32 variant of the same kernel; train_mlp_384.cu builds
+// it for a PE of 384 lanes (MLP_LANES), one block per SM.
 
 #include "mlp_tile.cuh"
 
 enum { MODE_PC = 0, MODE_RAY = 1, MODE_STREAM = 2 };
 
+// Lane j of the tile's PE from its points (px, py, pz) into pe32, peb, X
+// and X2.
+static __device__ __forceinline__ void pe_lane(const Args &a, const Tile &t,
+                                               const float *px,
+                                               const float *py,
+                                               const float *pz, int j) {
+  const int E = a.E, F = (E - 3) / 2;
+  const float m0 = a.Mc[j], m1 = a.Mc[LANES + j], m2 = a.Mc[2 * LANES + j],
+              m3 = a.Mc[3 * LANES + j];
+  const bool cos_lane = (j >= 3 + F) && (j < E);
+  for (int r = 0; r < TM; r++) {
+    float pre = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(px[r], m0), __fmul_rn(py[r], m1)),
+                  __fmul_rn(pz[r], m2)),
+        m3);
+    float pe = j < 3 ? pre
+                     : (j < E ? sinf(__fadd_rn(pre, cos_lane ? HALF_PI : 0.f))
+                              : 0.f);
+    size_t o = (size_t)(t.r0 + r) * LANES + j;
+    a.pe32[o] = pe;
+    const op_t pb = to_op(pe);
+    a.peb[o] = pb;
+    t.X[r * LDX + j] = pb;
+    t.X2[r * LDX + j] = pb;
+  }
+}
+
 // Phase 1: one block per 64-row tile.
 template <int MODE>
-static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
+static __global__ void __launch_bounds__(NTHR, TILE_BLOCKS)
     k_train_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
@@ -107,24 +135,10 @@ static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
     tile_pe_stream(a, t);
   } else {
     // ---- positional encoding (IEEE f32, rounding as the eager version) ----
-    const float m0 = a.Mc[j], m1 = a.Mc[HID + j], m2 = a.Mc[2 * HID + j],
-                m3 = a.Mc[3 * HID + j];
-    const bool cos_lane = (j >= 3 + F) && (j < E);
-    for (int r = 0; r < TM; r++) {
-      float pre = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(px[r], m0), __fmul_rn(py[r], m1)),
-                    __fmul_rn(pz[r], m2)),
-          m3);
-      float pe = j < 3 ? pre
-                       : (j < E ? sinf(__fadd_rn(pre, cos_lane ? HALF_PI : 0.f))
-                                : 0.f);
-      size_t o = (size_t)(r0 + r) * HID + j;
-      a.pe32[o] = pe;
-      const op_t pb = to_op(pe);
-      a.peb[o] = pb;
-      X[r * LDX + j] = pb;
-      X2[r * LDX + j] = pb;
-    }
+    pe_lane(a, t, px, py, pz, j);
+#if LANES > HID
+    if (j < LANES - NTHR) pe_lane(a, t, px, py, pz, j + NTHR);
+#endif
   }
 
   // ---- batch-distance bounds: nearest valid surface point ----

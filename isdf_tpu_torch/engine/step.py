@@ -84,7 +84,7 @@ import torch
 
 from isdf_tpu_torch.engine.buffer import FrameBuffer
 from isdf_tpu_torch.models import sdf_mlp as M
-from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op, source
+from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op, source, variant
 from isdf_tpu_torch.models.cuda_reverse_fused import make_cuda_reverse_fused
 from isdf_tpu_torch.models.fused_adamw import make_fused_adamw
 from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
@@ -209,6 +209,21 @@ class StepFunctions:
         # the kernel libraries this step launches (built by the Trainer)
         self.kernel_sources = sources if cuda else []
         self.uses_kernel = bool(self.kernel_sources)
+        # what ``step.bundle`` records of the train op a step launches on
+        # the card: its variant and lanes ("K1-ray/384"), and the shape of
+        # one call (points, embedding lanes, packed layers, surface points)
+        self.bundle_counts = {}
+        if fused and cuda:
+            rays = cfg.window_size * cfg.n_rays
+            budget = cfg.pc_surf_budget
+            self.bundle_counts = dict(
+                train_op=variant("K1-pc" if self.pc_in_kernel else
+                                 "K1-ray" if cfg.pe_in_kernel else
+                                 "K1-stream", model),
+                points=rays * cfg.n_samples_per_ray,
+                embedding=model.embedding_size, layers=model.n_layers,
+                surface=(min(rays, budget) if budget else rays)
+                if self.pc_in_kernel else 0)
         self.adamw = make_fused_adamw(cfg.lr, cfg.weight_decay,
                                       b1=0.9, b2=0.999, eps=1e-8)
         # the graph route on the card; ``eager`` keeps the plain loop there
@@ -510,8 +525,8 @@ class StepFunctions:
         [n_steps] on the device. Step step0 + t draws from self.gen seeded
         with step_seed(seed, step0 + t). Traced, the call is the span
         ``step.bundle`` (utils/profiling.py): the interval the sim clock
-        bills."""
-        with span("step.bundle", steps=n_steps):
+        bills, with the train op's ``bundle_counts``."""
+        with span("step.bundle", steps=n_steps, **self.bundle_counts):
             with span("step.table"):
                 table = step_table(n_steps, noise_std, lr_scale, buf.count,
                                    self.device)

@@ -30,11 +30,14 @@ Two executors of the same function:
     mm_precision other than "default" its f32-product mode,
     csrc/train_mlp_f32.cu (isdf_tpu's mm_dtype = float32), whose hidden
     products are split-bf16 tensor-core products (SPLIT_TERMS), the f32
-    operands split in the kernel's registers.
+    operands split in the kernel's registers; for an embedding wider than
+    256 lanes (n_embed_funcs 8: E = 381, iSDF's live configs) its 384-lane
+    build, csrc/train_mlp_384.cu, in the bf16 mode only.
 
 ``make_train_op`` returns a function that takes the plain version for CPU
 tensors and launches the kernel for CUDA tensors; it never falls back.
-``LAUNCHES`` counts kernel launches per variant, the f32 mode's apart.
+``LAUNCHES`` counts kernel launches per variant, the f32 mode's and the
+384-lane build's apart.
 """
 
 from __future__ import annotations
@@ -56,11 +59,16 @@ N_SPLITS_F32 = 33
 DW_SLAB = 32      # rows per shared-memory slab of k_dw (csrc: DW_KS)
 HALF_PI = float(np.float32(np.pi / 2))
 
-# kernel launches per variant, "-f32" the f32-product mode; only the
-# wrapper below adds to them (a captured launch once per graph replay,
-# utils/nvcc.py)
+# the PE lanes of K1's 384-lane build (csrc/train_mlp_384.cu, bf16 mode);
+# K1's f32 mode, K2/K3 and the query kernel take at most HID
+K1_MAX_LANES = 384
+
+# kernel launches per variant, "-f32" the f32-product mode, "-384" the
+# 384-lane build; only the wrapper below adds to them (a captured launch
+# once per graph replay, utils/nvcc.py)
 LAUNCHES = {"K1-pc": 0, "K1-ray": 0, "K1-stream": 0, "K1-pc-f32": 0,
-            "K1-ray-f32": 0, "K1-stream-f32": 0}
+            "K1-ray-f32": 0, "K1-stream-f32": 0, "K1-pc-384": 0,
+            "K1-ray-384": 0, "K1-stream-384": 0}
 MODES = {"K1-pc": 0, "K1-ray": 1, "K1-stream": 2}
 
 # the pointer fields of the kernels' argument block (csrc/mlp_tile.cuh,
@@ -94,10 +102,16 @@ def _loss_knobs(model, loss_type, trunc_distance, trunc_weight,
                 orien=bool(orien_loss))
 
 
+def pe_lanes(model: SDFModel) -> int:
+    """The PE lanes of the kernels' planes for this model: its packed rows
+    (sdf_mlp.SDFModel.pack_rows), at least 256; K1 builds 256 or 384."""
+    return max(HID, model.pack_rows)
+
+
 def tangent_rows(model: SDFModel, dxs, dproj2):
-    """Tc [3, 256] f32: row k = [dxs[k] | dproj2[k] | 0]."""
+    """Tc [3, pe_lanes] f32: row k = [dxs[k] | dproj2[k] | 0]."""
     E = model.embedding_size
-    T = torch.zeros((3, max(HID, E)), dtype=torch.float32,
+    T = torch.zeros((3, pe_lanes(model)), dtype=torch.float32,
                     device=dxs.device)
     T[:, :3] = dxs
     T[:, 3:E] = dproj2
@@ -238,10 +252,15 @@ def _check(name, t, shape, dtype=torch.float32):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def check_kernel_model(model: SDFModel):
-    if model.hidden_size != HID or model.embedding_size > HID:
-        raise ValueError("the MLP kernels need hidden_size == 256 and "
-                         "an embedding of at most 256 lanes")
+def check_kernel_model(model: SDFModel, max_lanes: int = HID,
+                       what: str = "the MLP kernels"):
+    """Raises unless ``what`` takes the model: hidden width 256 and an
+    embedding of at most ``max_lanes`` lanes."""
+    if model.hidden_size != HID or model.embedding_size > max_lanes:
+        raise ValueError(
+            f"{what}: hidden_size 256 and an embedding of at most "
+            f"{max_lanes} lanes needed; this map has hidden_size "
+            f"{model.hidden_size} and {model.embedding_size} lanes")
 
 
 def is_f32(model: SDFModel) -> bool:
@@ -249,19 +268,44 @@ def is_f32(model: SDFModel) -> bool:
     return FV.mm_dtype_of(model) == torch.float32
 
 
+def check_k1_model(model: SDFModel):
+    """K1 takes up to 256 lanes, or in its bf16 mode an embedding packed
+    to 384 (n_embed_funcs 8: E = 381)."""
+    if is_f32(model):
+        check_kernel_model(model, HID, "K1 in the f32-product mode")
+    elif model.pack_rows not in (HID, K1_MAX_LANES):
+        raise ValueError(
+            f"K1: an embedding of at most 256 lanes, or of 369 to 384 lanes "
+            f"(its 384-lane build), needed; this map has "
+            f"{model.embedding_size} lanes")
+    else:
+        check_kernel_model(model, K1_MAX_LANES, "K1")
+
+
 def source(name: str, model: SDFModel) -> str:
     """The csrc/ source of an MLP kernel library ("train_mlp",
-    "reverse_fused") in the model's product mode."""
-    return name + "_f32" if is_f32(model) else name
+    "reverse_fused") in the model's product mode and, for K1, lanes."""
+    if is_f32(model):
+        return name + "_f32"
+    if name == "train_mlp" and pe_lanes(model) > HID:
+        return name + "_384"
+    return name
+
+
+def variant(mode: str, model: SDFModel) -> str:
+    """K1's variant and lanes as spans name them, e.g. "K1-ray/384" or
+    "K1-pc-f32/256"."""
+    return (f"{mode}{'-f32' if is_f32(model) else ''}"
+            f"/{pe_lanes(model)}")
 
 
 def weight_args(params, model: SDFModel):
-    """The weight pointers of the argument block: W (the planes in the
-    products' operand type: bf16, or f32 as they are, split in the
-    kernels' registers), b and w_out, checked."""
+    """The weight pointers of the argument block: W (the planes [L, 2
+    pe_lanes, 256] in the products' operand type: bf16, or f32 as they
+    are, split in the kernels' registers), b and w_out, checked."""
     L = model.n_layers
     Wp, bp = params["Wp"], params["bp"]
-    _check("Wp", Wp, (L, 2 * HID, HID))
+    _check("Wp", Wp, (L, 2 * pe_lanes(model), HID))
     _check("bp", bp, (L, HID))
     W = Wp if is_f32(model) else Wp.to(torch.bfloat16).contiguous()
     return dict(W=W, b=bp, w_out=Wp[L - 1, :HID, 0].contiguous())
@@ -272,37 +316,44 @@ def weight_args(params, model: SDFModel):
 OPERAND_SCRATCH = ("peb", "m0b", "hb", "tb", "dzb", "dub")
 
 
-def k1_geometry(N: int, L: int, f32: bool = False) -> dict:
+def k1_geometry(N: int, L: int, f32: bool = False, lanes: int = HID) -> dict:
     """Launch geometry of the MLP kernels' phases for N points and L packed
     layers: NP rows in n_tiles tiles of TM (phase 1), S splits of rps rows
     each, a multiple of the k_dw slab (phase 2), and the shapes of the
     scratch the phases pass on (phase 3 reads the partials). ``f32``: the
-    f32-product mode. Also the mode's operand dtype (of the weights, the
-    activation tiles and the dW operand planes) and the shared memory of
-    each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW): the
+    f32-product mode; ``lanes``: the PE's lanes (256, or 384 in K1's
+    384-lane build: pe32, peb, m0b and layer 0's and the skip layer's pe
+    rows of dW that wide). Also the mode's operand dtype (of the weights,
+    the activation tiles and the dW operand planes) and the shared memory
+    of each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW): the
     activation tiles X and X2 (TM rows of ldx), the weight ring (nstage
-    stages of 256 rows of ks + 8), k_dw's ring (dw_stages stages of the
-    four operands' dw_ks rows of dw_ld; in the f32 mode two buffers of the
-    three bf16 planes a slab splits into), and the static shared arrays of
-    k_train_tile (smem_static). The f32 mode's budget: X and X2 f32
-    (135,168 B) and a ring of two f32 stages of 32 rows (81,920 B), one
-    block per SM; k_dw's two buffers of 16-row split planes (104,448 B)."""
+    stages of ``lanes`` rows of ks + 8), k_dw's ring (dw_stages stages of
+    the four operands' dw_ks rows of dw_ld; in the f32 mode two buffers of
+    the three bf16 planes a slab splits into), k_dw's grid (dw_tiles
+    output tiles a GEMM) and the static shared arrays of k_train_tile
+    (smem_static). The f32 mode's budget: X and X2 f32 (135,168 B) and a
+    ring of two f32 stages of 32 rows (81,920 B), one block per SM; k_dw's
+    two buffers of 16-row split planes (104,448 B). The 384-lane build's:
+    X and X2 at a stride of 392 (100,352 B) and a ring of two [384][40]
+    stages (61,440 B), one block per SM."""
+    assert lanes == HID or (lanes == K1_MAX_LANES and not f32), lanes
     nh = L - 1
     NP = _round_up(max(N, 1), TM)
     n_tiles = NP // TM
     S = N_SPLITS_F32 if f32 else N_SPLITS
     rps = _round_up(-(-NP // S), DW_SLAB)
+    P = lanes
     shapes = dict(
-        pe32=(NP, HID), sig=(nh, NP, HID), u=(nh, NP, HID), h5=(NP, HID),
-        peb=(NP, HID), m0b=(NP, HID), hb=(max(nh - 1, 1), NP, HID),
+        pe32=(NP, P), sig=(nh, NP, HID), u=(nh, NP, HID), h5=(NP, HID),
+        peb=(NP, P), m0b=(NP, P), hb=(max(nh - 1, 1), NP, HID),
         tb=(max(nh - 1, 1), NP, HID), dzb=(nh, NP, HID), dub=(nh, NP, HID),
         part_scal=(n_tiles, 8), part_db=(n_tiles, L * HID),
-        part_dwout=(n_tiles, HID), part_dw=(S, nh + 1, HID, HID),
-        dW=(L, 2 * HID, HID), db=(L, HID))
+        part_dwout=(n_tiles, HID), part_dw=(S, nh + 1, P, HID),
+        dW=(L, 2 * P, HID), db=(L, HID))
     op_dtype = torch.float32 if f32 else torch.bfloat16
     esz = 4 if f32 else 2
-    ldx, ks, nstage, dw_ld = 264, 32, 2, 136
-    smem = (2 * TM * ldx + nstage * HID * (ks + 8)) * esz
+    ldx, ks, nstage, dw_ld = P + 8, 32, 2, 136
+    smem = (2 * TM * ldx + nstage * P * (ks + 8)) * esz
     if f32:  # two buffers of a 16-row slab's three bf16 planes
         dw_stages, dw_ks = 2, 16
         smem_dw = dw_stages * 3 * 4 * dw_ks * dw_ld * 2
@@ -316,15 +367,17 @@ def k1_geometry(N: int, L: int, f32: bool = False) -> dict:
                 shapes=shapes, dtypes=dtypes, op_dtype=op_dtype, ldx=ldx,
                 ks=ks, nstage=nstage, dw_stages=dw_stages, dw_ks=dw_ks,
                 dw_ld=dw_ld, smem=smem, smem_dw=smem_dw,
-                smem_static=smem_static,
-                blocks_per_sm=1 if f32 else 2)
+                smem_static=smem_static, lanes=P,
+                dw_tiles=(P // 128) * (HID // 128),
+                blocks_per_sm=1 if f32 or P > HID else 2)
 
 
 def vjp_scratch(model: SDFModel, N: int, dev):
     """Scratch of the parameter-VJP phases for N points (sig/u stash, dW
     operands in the products' type, per-tile and split-K partials) and the
     dW/db outputs."""
-    geo = k1_geometry(N, model.n_layers, f32=is_f32(model))
+    geo = k1_geometry(N, model.n_layers, f32=is_f32(model),
+                      lanes=pe_lanes(model))
     return {k: torch.empty(shape, device=dev, dtype=geo["dtypes"][k])
             for k, shape in geo["shapes"].items()}
 
@@ -336,7 +389,8 @@ def launch(lib, fn_name, model: SDFModel, N: int, ptrs: dict, lk=None,
     null)."""
     unknown = set(ptrs) - set(ARG_PTRS)
     assert not unknown, unknown
-    geo = k1_geometry(N, model.n_layers, f32=is_f32(model))
+    geo = k1_geometry(N, model.n_layers, f32=is_f32(model),
+                      lanes=pe_lanes(model))
     lk = lk or dict(so=0.0, trunc_d=0.0, tw=0.0, gw=0.0, ew=0.0, ead=0.0,
                     fsf=0.0, loss_type="L1", orien=False)
     knobs = [lk["so"], lk["trunc_d"], lk["tw"], lk["gw"], lk["ew"],
@@ -355,7 +409,8 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     """Launch the kernel (three phases on the current stream). Same
     arguments and results as train_op_plain with mm_dtype =
     FV.mm_dtype_of(model)."""
-    check_kernel_model(model)
+    check_k1_model(model)
+    P = pe_lanes(model)
     mode = ("K1-pc" if surf is not None else
             "K1-stream" if pe is not None else "K1-ray")
     N = (pe if pe is not None else pts).shape[0]
@@ -364,7 +419,7 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
     _check("valid", valid, (N,))
     _check("noise", noise, (N,))
     _check("inv_count", inv_count, ())
-    _check("Tc", Tc, (3, HID))
+    _check("Tc", Tc, (3, P))
     ptrs.update(valid=valid, noise=noise, inv_count=inv_count, Tc=Tc)
     R = 0
     if mode == "K1-stream":
@@ -372,7 +427,7 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
         ptrs["pe_in"] = pe
     else:
         _check("pts", pts, (N, 3))
-        _check("M", M, (128, HID))
+        _check("M", M, (128, P))
         ptrs.update(pts=pts, Mc=M[:4].contiguous())
     if mode == "K1-pc":
         R = surf.shape[0]
@@ -393,7 +448,8 @@ def train_op_cuda(params, model: SDFModel, lk, M, Tc, pts, valid, noise,
                 sums=torch.empty(5, device=dev))
     launch(nvcc.load(source("train_mlp", model)), "isdf_train_mlp", model,
            N, ptrs, lk=lk, R=R, extra_ints=(MODES[mode],))
-    nvcc.count_launch(LAUNCHES, mode + ("-f32" if is_f32(model) else ""))
+    nvcc.count_launch(LAUNCHES, mode + ("-f32" if is_f32(model) else
+                                        "-384" if P > HID else ""))
     return ptrs["sums"], ptrs["ploss"], (ptrs["dW"], ptrs["db"])
 
 

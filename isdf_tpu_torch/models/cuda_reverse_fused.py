@@ -36,7 +36,7 @@ LAUNCHES = {"K2": 0, "K3": 0, "K2-f32": 0, "K3-f32": 0}
 
 
 def _inputs(params, model: SDFModel, pe, Tc):
-    K.check_kernel_model(model)
+    K.check_kernel_model(model, K.HID, "K2/K3 (the reverse-fused op)")
     N = pe.shape[0]
     K._check("pe", pe, (N, model.embedding_size))
     K._check("Tc", Tc, (3, K.HID))

@@ -325,8 +325,9 @@ def _pe_consts(model: SDFModel, transform, device="cpu"):
     """Point-independent pieces of the factored PE, for building the
     encoding inside the train kernel:
 
-      M [128, 256] f32 — packed affine plane: for r = [x, y, z, 1, 0...],
-        pre = r @ M has lanes [xs(3) | xb(F) | xb(F) | 0], so
+      M [128, max(256, K)] f32 — packed affine plane (K = pack_rows):
+        for r = [x, y, z, 1, 0...], pre = r @ M has lanes
+        [xs(3) | xb(F) | xb(F) | 0], so
         pe = [pre[:3], sin(pre[3:3+F]), cos(pre[3+F:3+2F])];
       dxs [3, 3], dproj2 [3, 2F] — the PE Jacobian's constant factors.
     """
@@ -349,7 +350,8 @@ def _pe_consts(model: SDFModel, transform, device="cpu"):
     P = (D[:, :, None] * b).reshape(3, F)
     AP = A.T @ P
     cP = c @ P
-    M = torch.zeros((128, 256), dtype=torch.float32, device=device)
+    M = torch.zeros((128, max(256, model.pack_rows)), dtype=torch.float32,
+                    device=device)
     M[:3, :3] = A.T
     M[3, :3] = c
     M[:3, 3:3 + F] = AP

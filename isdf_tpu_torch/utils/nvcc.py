@@ -75,7 +75,8 @@ def _target(src_dir: str, name: str) -> str:
 def _build(pairs):
     """Compile the (src_dir, name) libraries not built yet, one nvcc each,
     all at once; traced, the span ``nvcc.build`` with the count of
-    libraries compiled."""
+    libraries compiled and their sources' names (``built``, comma-separated:
+    "train_mlp_384" is K1's 384-lane build)."""
     with span("nvcc.build") as sp:
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         procs = {}
@@ -92,7 +93,8 @@ def _build(pairs):
             procs[out] = (name, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, time.perf_counter())
-        sp.count(libs=len(procs))
+        sp.count(libs=len(procs),
+                 built=",".join(name for name, *_ in procs.values()))
         failed = []
         for out, (name, proc, tmp, t0) in procs.items():
             log, _ = proc.communicate()

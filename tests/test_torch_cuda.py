@@ -15,7 +15,11 @@ rows apart, and a layer's bias) 1.5e-3 of its own largest magnitude (read:
 1.4e-4 for K1, 1.0e-4 for K3), K2's raw sdf and each column of d raw/dx
 7e-2 of their largest magnitude (read: 6.4e-3; single points sit on bf16
 rounding boundaries, see PERF.md), K4's indices exactly. chip_smoke.py
-holds the full-size calls (N = 27,000). The query kernel
+holds the full-size calls (N = 27,000). K1's 384-lane build (E = 381) is
+held at N = 27,000 to the same limits: the same bf16 products, only deeper
+in layer 0 and the skip layer, and its gaps read within them (sums
+2.5e-6, per-point loss 1.2e-3, blocks 9.3e-5: chip_smoke.py's K1-ray-384
+row, PERF.md section 6). The query kernel
 (csrc/query_mlp.cu) in both modes against the eager chain in float32 (TF32
 off), through the serve engine: max |kernel - eager| over the largest
 |eager| of the request, TOL_QUERY, about 10x the largest gap an H100 read
@@ -130,6 +134,76 @@ def test_kernel_matches_plain_on_card(pc, loss_type, orien):
     errs = [((a - r).abs().max() / r.abs().max()).item() for a, r in zip(
         _blocks(model, kdw, kdb), _blocks(model, pdw, pdb))]
     assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["pc", "ray", "stream"])
+def test_wide_kernel_matches_plain_on_card(variant):
+    """K1's 384-lane build (n_embed_funcs 8, E = 381, the live configs)
+    against the plain op at N = 27,000, the trainer's size, one launch
+    counted under its own key; two calls give the same bits."""
+    _need_card()
+    model = TM.SDFModel(embedding_size=381, max_deg=8)
+    params = TM.init_params(torch.Generator().manual_seed(0), model,
+                            device="cuda")
+    T = torch.eye(4, device="cuda")
+    T[:3, 3] = torch.tensor([0.1, -0.2, 0.3], device="cuda")
+    x = _inputs("cuda", R=1000)
+    assert x["pts"].shape[0] == 27000
+    pc, stream = variant == "pc", variant == "stream"
+    op = K.make_train_op(model, **KW, pc_bounds=pc, pe_in_kernel=not stream)
+    key = f"K1-{variant}-384"
+    n0 = K.LAUNCHES[key]
+    lk = K._loss_knobs(model, free_space_factor=5.0, **KW)
+    if stream:
+        pe, _, dxs, dproj2 = TM._pe_factored(x["pts"], model, T)
+        args = (params, pe, dxs, dproj2, x["bounds"], x["valid"], x["noise"],
+                x["gt"], x["inv_count"])
+        Tc, M, kw = K.tangent_rows(model, dxs, dproj2), None, dict(
+            bounds=x["bounds"], gt=x["gt"], pe=pe)
+    else:
+        args = _args(params, T, x, pc)
+        M, dxs, dproj2 = TM._pe_consts(model, T, device="cuda")
+        Tc = K.tangent_rows(model, dxs, dproj2)
+        kw = (dict(surf=x["surf"], surf_valid=x["surf_valid"], zd=x["zd"],
+                   normals_pt=x["normals_pt"], is_surf=x["is_surf"])
+              if pc else dict(bounds=x["bounds"], gt=x["gt"]))
+    ks, kp, (kdw, kdb) = op(*args)
+    again = op(*args)
+    assert K.LAUNCHES[key] == n0 + 2
+    assert kdw.shape == (model.n_layers, 768, 256)
+    ps, pp, (pdw, pdb) = K.train_op_plain(
+        params, model, lk, M, Tc, x["pts"], x["valid"], x["noise"],
+        x["inv_count"], **kw)
+    torch.cuda.synchronize()
+    assert ((ks - ps).abs() / ps.abs()).max().item() <= TOL_SUMS_REL
+    assert _rel(kp, pp) <= TOL_PLOSS
+    errs = [_rel(a, r) for a, r in zip(_blocks(model, kdw, kdb),
+                                       _blocks(model, pdw, pdb))]
+    assert max(errs) <= TOL_GRAD, f"gradient blocks: {errs}"
+    for u, v in zip((ks, kp, kdw, kdb), (again[0], again[1], *again[2])):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_wide_bundle_span_names_the_384_lane_op_on_card():
+    """A traced bundle of a live-config map records its train op's variant
+    and lanes and the call's shape (utils/profiling.py spans)."""
+    _need_card()
+    from isdf_tpu_torch.utils import profiling as P
+    tr = _graph_trainer(False, n_embed_funcs=8)
+    tr.last_is_keyframe = True
+    tr.add_frame(tr.get_data([0])[0])
+    tr.run_steps(2)
+    P.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        tr.run_steps(3)
+    spans = [s for s in P.recorded() if s.name == "step.bundle"]
+    assert spans and all(s.counts["train_op"] == "K1-pc/384"
+                         and s.counts["embedding"] == 381
+                         and s.counts["points"] == 5 * 200 * 27
+                         and s.counts["layers"] == 7 for s in spans)
 
 
 @pytest.mark.cuda
@@ -673,8 +747,10 @@ def _graph_schedule(tr, cuts):
 @pytest.mark.parametrize("knobs", [
     {}, dict(pe_in_kernel=False, use_pallas=True),
     dict(grad_mode="reverse_fused", use_pallas=True),
-    dict(compute_dtype="bfloat16", grad_mode="auto")],
-    ids=["K1-pc", "K1-stream+K4", "reverse_fused+K4", "auto-bf16"])
+    dict(compute_dtype="bfloat16", grad_mode="auto"),
+    dict(n_embed_funcs=8)],
+    ids=["K1-pc", "K1-stream+K4", "reverse_fused+K4", "auto-bf16",
+         "K1-pc-384"])
 def test_graph_route_equals_eager_on_card(knobs):
     """Replays of the captured step give the eager loop's bits, bundles
     cut differently; a kernel's launches count once a step either way."""

@@ -2,7 +2,8 @@
 """The port's spans in a ``train.py --trace`` run, held against the
 Chrome trace it exports.
 
-    python -m tools.span_check [--out DIR] [--small]     (from the repo's root)
+    python -m tools.span_check [--out DIR] [--small] [--cell NAME]
+                                                        (from the repo's root)
 
 Writes a ReplicaCAD-format sequence from a seed (benchmark/sequence.py),
 trains on it with ``python -m isdf_tpu_torch.train.train --trace`` in this
@@ -12,8 +13,15 @@ round under ``utils/profiling.device_trace``. For each trace it matches
 every span the recorder kept (utils/profiling.recorded) to its
 ``isdf.<name>`` event in the exported ``trace.json``, and prints, per span
 name, the count, the largest start and end differences in us and how many
-pass 100 us. Exits 1 if a span of the lists below is missing from its
-trace or a difference passes 100 us. ``--small`` runs a 64 x 48 camera on the CPU (a rehearsal).
+pass 100 us. Each ``step.bundle`` span must name the train op it launched
+on the card, its variant and lanes (``train_op``, "K1-ray/384"), with the
+call's ``points``, ``embedding``, ``layers`` and ``surface``; on the CPU
+(the plain op) none names one. Exits 1 if a span of the lists below is
+missing from its trace, a difference passes 100 us or a bundle's counts
+are wrong. ``--small`` runs a 64 x 48 camera on the CPU (a rehearsal).
+``--cell NAME`` checks, instead, a traced window of the benchmark's
+training cell NAME (``benchmark/workloads``; e.g. realsense.steps): its
+trainer set up as a run sets it up, five of its calls traced.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import tempfile
 from collections import defaultdict
@@ -37,7 +46,31 @@ TRAIN = ("step.bundle", "step.table", "step.replay", "graphs.warm",
 SERVE = ("serve.request", "serve.validate", "serve.lock", "serve.copy_in",
          "serve.compute", "serve.fetch", "fleet.round", "fleet.fetch",
          "step.bundle")
+CELL = ("step.bundle", "step.table", "step.replay", "trainer.run_steps",
+        "trainer.fetch")
 TOL_US = 100.0
+# a step.bundle's train_op on the card: K1's variant and lanes
+VARIANT = re.compile(r"^K1-(pc|ray|stream)(-f32)?/(256|384)$")
+SHAPE = ("points", "embedding", "layers", "surface")
+
+
+def bundle_errors(spans, on_card: bool):
+    """What is wrong with the ``step.bundle`` spans' counts: on the card
+    each names its train op's variant and lanes and the call's shape; on
+    the CPU none names one."""
+    out = []
+    for s in spans:
+        if s.name != "step.bundle":
+            continue
+        c = s.counts
+        if not on_card:
+            if "train_op" in c:
+                out.append(f"a CPU bundle names {c['train_op']}")
+        elif not VARIANT.match(str(c.get("train_op", ""))):
+            out.append(f"a bundle names no K1 variant: {c}")
+        elif not all(isinstance(c.get(k), int) for k in SHAPE):
+            out.append(f"a bundle lacks its op's shape: {c}")
+    return sorted(set(out))
 
 
 def match(trace_path, spans):
@@ -67,14 +100,20 @@ def match(trace_path, spans):
     return out, sorted(unmatched)
 
 
-def report(part, trace_dir, want):
+def report(part, trace_dir, want, on_card):
     from isdf_tpu_torch.utils import profiling
-    rows, unmatched = match(os.path.join(trace_dir, "trace.json"),
-                            profiling.recorded())
+    spans = profiling.recorded()
+    rows, unmatched = match(os.path.join(trace_dir, "trace.json"), spans)
     missing = [n for n in want if n not in rows]
     worst = max((max(r[1], r[2]) for r in rows.values()), default=0.0)
+    bad = bundle_errors(spans, on_card)
+    variants = sorted({str(s.counts.get("train_op")) for s in spans
+                       if s.name == "step.bundle"})
     print(f"{part}: {sum(r[0] for r in rows.values())} spans, worst "
-          f"start/end gap {worst:.1f} us; dropped {profiling.dropped()}")
+          f"start/end gap {worst:.1f} us; dropped {profiling.dropped()}; "
+          f"bundles' train_op {variants}")
+    for b in bad:
+        print(f"  {b}")
     for name, (n, ds, de, over) in sorted(rows.items()):
         print(f"  {name:22s} {n:6d}  start {ds:8.1f} us  end {de:8.1f} us"
               f"  past {TOL_US:.0f} us: {over}")
@@ -82,13 +121,46 @@ def report(part, trace_dir, want):
         print(f"  missing: {missing}; without an event: {unmatched}")
     return {"part": part, "spans": rows, "missing": missing,
             "unmatched": unmatched, "worst_us": worst,
-            "ok": not missing and not unmatched and worst <= TOL_US}
+            "train_op": variants, "bundle_errors": bad,
+            "ok": (not missing and not unmatched and worst <= TOL_US
+                   and not bad)}
+
+
+def cell_part(name, out, dev, small):
+    """A traced window of the benchmark's training cell ``name``: its
+    set-up as a run makes it (at a 64 x 48 camera with ``small``), a
+    warm-up call, then five of its calls under the profiler."""
+    import importlib
+    import time
+    from benchmark import common
+    from benchmark.tests.test_bench_rehearsal import WIDE
+    from isdf_tpu_torch.utils import profiling
+    cell = common.cell_spec(name)
+    ctx = common.Ctx(seed=7, seconds=0.0, trace=False, cell=cell,
+                     device=dev, t_process=time.perf_counter(),
+                     scratch=out, overrides=WIDE if small else {})
+    traffic = importlib.import_module("benchmark.traffic." + cell["traffic"])
+    _, _, prog = traffic._setup(ctx, ctx.config())
+    obj, method = prog["call"]
+    call = getattr(obj, method)
+    bundle = int(ctx.params["bundle"])
+    call(bundle)
+    profiling.clear()
+    trace = os.path.join(out, "cell_trace")
+    with profiling.device_trace(trace):
+        for _ in range(5):
+            call(bundle)
+    card = dev.type == "cuda"
+    want = CELL if card else tuple(  # the CPU's steps run eagerly
+        "step.eager" if n == "step.replay" else n for n in CELL)
+    return report(f"{name} (a traced window)", trace, want, card)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--cell", default=None)
     args = ap.parse_args(argv)
     from benchmark import common
     from benchmark import inputs as I
@@ -101,6 +173,9 @@ def main(argv=None):
     out = args.out or tempfile.mkdtemp(prefix="span_check_")
     os.makedirs(out, exist_ok=True)
     dev = torch.device("cpu" if args.small else "cuda")
+    if args.cell:
+        results = [cell_part(args.cell, out, dev, args.small)]
+        return finish(out, results)
     cfg = json.loads(json.dumps(
         common.cell_spec("replicacad.stream")["config_file"]["config"]))
     ds = cfg["dataset"]
@@ -126,7 +201,7 @@ def main(argv=None):
     T.main(["--config", path, "--max_steps", str(steps), "--trace", trace1,
             "--save_path", os.path.join(out, "run"), "--seed", "7"]
            + (["--device", "cpu"] if args.small else []))
-    results = [report("train.py --trace", trace1, TRAIN)]
+    results = [report("train.py --trace", trace1, TRAIN, not args.small)]
 
     # the serve engine and the multi-scene stepper on a trainer of the run
     from isdf_tpu_torch.engine.trainer import Trainer
@@ -145,7 +220,12 @@ def main(argv=None):
             engine.sdf(pts)
             engine.grad(pts)
             stepper.run_steps(10)
-    results.append(report("serve and fleet", trace2, SERVE))
+    results.append(report("serve and fleet", trace2, SERVE,
+                          not args.small))
+    return finish(out, results)
+
+
+def finish(out, results):
     with open(os.path.join(out, "span_check.json"), "w") as f:
         json.dump(results, f, indent=1)
     ok = all(r["ok"] for r in results)

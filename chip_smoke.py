@@ -317,8 +317,8 @@ SOURCE_OF = {"K1-pc": "train_mlp", "K1-ray": "train_mlp",
 SOURCE_OF.update((k, SOURCE_OF[k[:-4]] + "_f32") for k in F32)
 SOURCE_OF.update((k, "train_mlp_384") for k in W384)
 # planted faults, one per kernel of the second slice, two in K1's staged
-# products and a second in K4's group merge: (label, kernel whose check
-# must fail, file, text, faulty)
+# products, two in its 384-lane build's own paths and a second in K4's
+# group merge: (label, kernel whose check must fail, file, text, faulty)
 PLANTED = (
     ("K1-stream", "K1-stream", "mlp_tile.cuh", "(row < a.N && j < a.E) ?",
      "(row < a.N && j < a.E - 1) ?"),
@@ -349,6 +349,15 @@ PLANTED = (
     ("f32 split hl lh", "K1-pc-f32", "mlp_tile.cuh",
      "split_term<0, 2>(acc, a, b); split_term<2, 0>(acc, a, b);  // hl, lh",
      "// hl, lh dropped"),
+    # the 384-lane build: the A slab of the PE's lanes past 256 read from
+    # lanes 0..127 of the stash
+    ("K1-384 tail slab", "K1-ray-384", "mlp_tile.cuh",
+     "p.tail + (size_t)(t.r0 + r) * LANES + k0 + h * CHUNK",
+     "p.tail + (size_t)(t.r0 + r) * LANES + k0 - HID + h * CHUNK"),
+    # ... a lane keeping another m-tile's spatial-gradient partials
+    ("K1-384 contraction rows", "K1-ray-384", "mlp_tile.cuh",
+     "        if (t.q == i) out[3 * h + k] = v;",
+     "        if (t.q == (i ^ 1)) out[3 * h + k] = v;"),
     # the query kernel's skip layer reads zeros in place of its pe rows
     ("Q skip pe rows", "Q-sdf", "query_mlp.cu",
      "tile_pe(a, sh, act, p0, tid, false);  // the skip layer's pe rows",

@@ -88,11 +88,26 @@
 // tangent m0 and d raw / d pe are LANES wide; so are layer 0's rows and
 // the skip layer's pe rows, which sit at LANES:2 LANES of a [L, 2 LANES,
 // 256] plane. Layer 0's products and the skip layer's second segment run
-// LANES / KS slabs deep, and the v-chain's layer-0 product writes LANES
-// columns, LANES / 8 a warp. Shared memory at 384 lanes: X and X2 at a
-// row stride of 392 (100,352 B) and a ring of two [384 n][KS] stages
-// (61,440 B), one block per SM; k_dw adds the 384-row GEMMs of layer 0
-// and of the skip layer's pe rows as two more 128-row output tiles each.
+// LANES / KS slabs deep. At 384 lanes a block keeps the 256-lane budget
+// (108,544 B of dynamic shared memory, 128 registers), so two blocks share
+// an SM:
+//  * X and X2 hold the first 256 lanes of the PE (of m0 in the tangent
+//    chain). A slab past them reads its A operand from the bf16 stash
+//    (peb, m0b) that the block has just written: ring_issue copies a [TM]
+//    [KS] slab of it into the stage beside the weights, whose plain slab
+//    drops its padding for it (a row stride of 256, the 16-byte chunks
+//    XOR-swizzled by row; the A slab's by row pair), so that a stage stays
+//    256 x (KS + 8) elements.
+//  * The v-chain's layer-0 product, 384 columns, runs as a 256-column pass
+//    and a 128-column one (4 and 2 n-tiles a warp). Each pass's
+//    accumulators are contracted with cb * T_k where they are
+//    (vpe_contract), so no [TM][384] f32 tile of d raw / d pe is needed;
+//    the warps' partials of the spatial gradient meet in F and are summed
+//    in a fixed order (tile_spatial_grad).
+// (X and X2 384 wide with 384-row stages take 161.8 KB and 189 registers:
+// one block an SM, and K1 0.65 ms slower at 27,000 points; PERF.md,
+// section 6.) k_dw adds the 384-row GEMMs of layer 0 and of the skip
+// layer's pe rows as two more 128-row output tiles each.
 // At 256 lanes every size is the one above, and the code paths are the
 // ones before the lane count became a constant (a lane a thread, the
 // v-chain's loop whole): peeling layer 0 of the v-chain there, or looping
@@ -118,6 +133,7 @@ typedef __nv_bfloat162 bf162;
 #define MLP_LANES 256
 #endif
 #define LANES MLP_LANES
+#define HID 256
 
 #if MLP_F32
 typedef float op_t;  // activation tiles and dW operand planes
@@ -131,30 +147,30 @@ typedef float wt_t;  // the weights, in global memory and in the ring
 #else
 typedef bf16 op_t;
 typedef bf16 wt_t;
+#if LANES > HID
+#define LDW 256      // swizzled, not padded: an A slab follows it in a stage
+#else
 #define LDW 264
+#endif
 #define DW_KS 32
 #define DW_LD 136
 #define MIN_BLOCKS 2
 #endif
-#define LDX (LANES + 8)  // activation tile row stride (elements)
+#define LDX (HID + 8)  // activation tile row stride (elements)
 #define DW_NSTAGE 3  // k_dw ring stages
 #define CHUNK (16 / (int)sizeof(op_t))  // elements of one 16-byte cp.async
 #define WCHUNK (16 / (int)sizeof(wt_t))  // ... of the weights
 
-#define HID 256
 #define CATW (2 * LANES)  // rows of a layer's weight plane
 #define TM 64
 #define NTHR 256
-// resident blocks per SM of the tile kernels: X, X2 and the ring of the
-// 384-lane build leave room for one
-#define TILE_BLOCKS (LANES > HID ? 1 : MIN_BLOCKS)
-#define LDO (LANES + 4)  // f32 row-reduction tile row stride (elements)
+#define LDO (HID + 4)  // f32 row-reduction tile row stride (elements)
 #define KS 32      // weight rows (k) per ring stage
 #define NSTAGE 2   // ring stages
 #define LDT (KS + 8)  // row stride of a transposed weight slab [n][KS k]
-// >= KS * LDW, the plain slab [KS k][256 n]; a transposed slab has up to
-// LANES rows n (the v-chain's layer 0)
-#define STAGE_ELEMS (LANES * LDT)
+// a transposed slab [256 n][LDT]; >= KS * LDW, the plain slab [KS k][256
+// n] (with, at 384 lanes, the [TM][KS] A slab of the PE's lanes past 256)
+#define STAGE_ELEMS (HID * LDT)
 
 static_assert(LANES == HID || (LANES == 384 && !MLP_F32),
               "the PE takes 256 lanes, or 384 in the bf16 mode");
@@ -223,6 +239,13 @@ static const int SMEM_DW = DW_NSTAGE * DW_STAGE_ELEMS * (int)sizeof(op_t);
 static_assert(KS * LDW <= STAGE_ELEMS, "a plain slab fits a stage");
 static_assert(TM * LDO * sizeof(float) <= 2 * TM * LDX * sizeof(op_t),
               "the f32 tile fits in X and X2");
+#if LANES > HID
+static_assert(KS * LDW + TM * KS == STAGE_ELEMS,
+              "a plain slab and its A slab fill a stage");
+static_assert(TM * KS / CHUNK == NTHR, "an A slab is a chunk a thread");
+static_assert(3 * (NTHR / 32) * TM <= TM * LDO,
+              "the warps' spatial-gradient partials fit in F");
+#endif
 
 // ---- PTX: cp.async, ldmatrix, mma.sync ----
 
@@ -419,10 +442,16 @@ __device__ __forceinline__ void acc_add(float (&acc)[MT][4][4], int i0,
 // blocks of row stride 256. A segment is 256 rows deep, or LANES where
 // its rows are the PE's (pe0, pe1: layer 0's rows and the skip layer's pe
 // rows, in a plain product); a transposed product's segments are 256 deep.
+// At 384 lanes, tail is the bf16 stash [NP, LANES] whose lanes past 256
+// are the A operand of a pe segment's slabs past 256 (peb, or m0b in the
+// tangent chain).
 struct Prod {
   const wt_t *W0, *W1;
   int nseg;
   bool pe0, pe1;
+#if LANES > HID
+  const op_t *tail;
+#endif
 };
 
 // The k-slabs of a segment; of a product; whether slab s is of segment 1;
@@ -456,8 +485,23 @@ __device__ __forceinline__ int slab_k0(const Prod &p, int s) {
 #endif
 }
 
+// The 16-byte chunk that holds chunk h of row k of a plain slab: at 384
+// lanes (row stride 256, no padding) XOR-swizzled by the row, so that
+// ldmatrix's eight rows of a chunk fall in distinct banks.
+__device__ __forceinline__ int wchunk(int k, int h) {
+  return LANES > HID ? h ^ (k & 7) : h;
+}
+
+// ... of row r of an A slab [TM][KS] (64 bytes a row, 384 lanes):
+// swizzled by the row pair.
+__device__ __forceinline__ int achunk(int r, int h) {
+  return h ^ ((r >> 1) & 3);
+}
+
 // Slab s of a product's weights into its ring stage: [KS k][256 n] or,
 // with TRANS, [NC n][KS k]; then one cp.async group, empty past the end.
+// At 384 lanes a plain slab past a pe segment's 256th row brings the rows'
+// A slab [TM][KS] from p.tail after the weights.
 template <bool TRANS, int NC = HID>
 __device__ __forceinline__ void ring_issue(const Prod &p, int s, const Tile &t) {
   if (s < prod_slabs(p)) {
@@ -472,10 +516,17 @@ __device__ __forceinline__ void ring_issue(const Prod &p, int s, const Tile &t) 
                    W + (size_t)n * HID + k0 + h * WCHUNK);
       } else {      // HID / WCHUNK chunks a row
         const int k = c / (HID / WCHUNK), h = c % (HID / WCHUNK);
-        cp_async16(dst + k * LDW + h * WCHUNK,
+        cp_async16(dst + k * LDW + wchunk(k, h) * WCHUNK,
                    W + (size_t)(k0 + k) * HID + h * WCHUNK);
       }
     }
+#if LANES > HID
+    if (!TRANS && k0 >= HID) {
+      const int r = t.tid / (KS / CHUNK), h = t.tid % (KS / CHUNK);
+      cp_async16(dst + KS * LDW + r * KS + achunk(r, h) * CHUNK,
+                 p.tail + (size_t)(t.r0 + r) * LANES + k0 + h * CHUNK);
+    }
+#endif
   }
   cp_async_commit();
 }
@@ -537,6 +588,55 @@ __device__ __forceinline__ void ring_prime(const Prod &p, const Tile &t) {
   for (int s = 0; s < NSTAGE - 1; s++) ring_issue<TRANS, NC>(p, s, t);
 }
 
+#if !MLP_F32
+// One slab of mm_stream's products in the bf16 mode: B from stage S, A
+// from XA at the row stride of X from column kk or, with TAIL (384 lanes),
+// from the stage's A slab [TM][KS].
+template <bool TRANS, int MT, bool DUAL, int NT, bool TAIL>
+__device__ __forceinline__ void mma_slab(float (&acc)[MT][NT][4],
+                                         float (&acc2)[MT][NT][4],
+                                         const wt_t *S, const op_t *XA,
+                                         const op_t *X1, int kk, int m0row,
+                                         const Tile &t) {
+  const int lane = t.lane;
+#pragma unroll
+  for (int k16 = 0; k16 < KS; k16 += 16) {
+    uint32_t b[NT][2];
+#pragma unroll
+    for (int pp = 0; pp < NT / 2; pp++) {
+      uint32_t r[4];
+      const int nb = (NT == 4 ? t.n0 : t.warp * 8 * NT) + 16 * pp;
+      if (TRANS)
+        ldsm_x4(r, S + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDT + k16 +
+                       ((lane >> 3) & 1) * 8);
+      else
+        ldsm_x4_t(r, S + (k16 + (lane & 15)) * LDW +
+                         wchunk(lane, (nb >> 3) + (lane >> 4)) * 8);
+      b[2 * pp][0] = r[0]; b[2 * pp][1] = r[1];
+      b[2 * pp + 1][0] = r[2]; b[2 * pp + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; i++) {
+      // rows m0row + 16 i + (lane & 15): a row pair's swizzle is lane's
+      const int row = m0row + 16 * i + (lane & 15);
+      const int ch = (k16 >> 3) + (lane >> 4);
+      const int ar = TAIL ? row * KS + achunk(lane, ch) * 8
+                          : row * LDX + kk + ch * 8;
+      uint32_t af[4];
+      ldsm_x4(af, XA + ar);
+#pragma unroll
+      for (int jn = 0; jn < NT; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
+      if (DUAL) {
+        ldsm_x4(af, X1 + ar);
+#pragma unroll
+        for (int jn = 0; jn < NT; jn++)
+          mma_bf16(acc2[i][jn], af, b[jn][0], b[jn][1]);
+      }
+    }
+  }
+}
+#endif
+
 // Rows m0row .. m0row + 16 MT - 1 of the product, the warp's NT n-tiles of
 // 8 columns (from column 8 NT warp), accumulated in registers, after
 // ring_prime<TRANS, NC>(p):
@@ -555,7 +655,6 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][NT][4],
                                           const Tile &t) {
   static_assert(NC == 64 * NT, "8 warps of NT n-tiles cover the columns");
   const int nslab = prod_slabs(p);
-  const int lane = t.lane;
   for (int s = 0; s < nslab; s++) {
     cp_async_wait<NSTAGE - 2>();  // slab s has landed for this thread
     __syncthreads();              // ... for all; slab s - 1's stage is free
@@ -589,37 +688,15 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][NT][4],
       }
     }
 #else
-#pragma unroll
-    for (int k16 = 0; k16 < KS; k16 += 16) {
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int pp = 0; pp < NT / 2; pp++) {
-        uint32_t r[4];
-        const int nb = (NT == 4 ? t.n0 : t.warp * 8 * NT) + 16 * pp;
-        if (TRANS)
-          ldsm_x4(r, S + (nb + (lane & 7) + ((lane >> 4) << 3)) * LDT + k16 +
-                         ((lane >> 3) & 1) * 8);
-        else
-          ldsm_x4_t(r, S + (k16 + (lane & 15)) * LDW + nb + (lane >> 4) * 8);
-        b[2 * pp][0] = r[0]; b[2 * pp][1] = r[1];
-        b[2 * pp + 1][0] = r[2]; b[2 * pp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; i++) {
-        const int ar = (m0row + 16 * i + (lane & 15)) * LDX + kk + k16 +
-                       (lane >> 4) * 8;
-        uint32_t af[4];
-        ldsm_x4(af, XA + ar);
-#pragma unroll
-        for (int jn = 0; jn < NT; jn++) mma_bf16(acc[i][jn], af, b[jn][0], b[jn][1]);
-        if (DUAL) {
-          ldsm_x4(af, X1 + ar);
-#pragma unroll
-          for (int jn = 0; jn < NT; jn++)
-            mma_bf16(acc2[i][jn], af, b[jn][0], b[jn][1]);
-        }
-      }
-    }
+#if LANES > HID
+    // a pe segment's slabs past 256 read A from the stage (ring_issue)
+    if (!TRANS && kk >= HID)
+      mma_slab<TRANS, MT, DUAL, NT, true>(acc, acc2, S, S + KS * LDW, X1, kk,
+                                          m0row, t);
+    else
+#endif
+      mma_slab<TRANS, MT, DUAL, NT, false>(acc, acc2, S, XA, X1, kk, m0row,
+                                           t);
 #endif
   }
   cp_async_wait<0>();
@@ -628,10 +705,17 @@ __device__ __forceinline__ void mm_stream(float (&acc)[MT][NT][4],
 // The products of the chains: the forward and tangent chains' layer l
 // (the skip layer's pe rows as a second segment), the v-chain's layer l
 // (transposed; layer 0 adds the skip layer's pe rows through X2) and the
-// backward chain's layer l (transposed, main rows only).
-__device__ __forceinline__ Prod prod_fwd(const Args &a, int l) {
+// backward chain's layer l (transposed, main rows only). ``tail``: the
+// stash of the PE's A operand, peb (forward) or m0b (tangent chain), read
+// at 384 lanes only.
+__device__ __forceinline__ Prod prod_fwd(const Args &a, int l,
+                                         const op_t *tail) {
   const wt_t *Wl = a.W + (size_t)l * CATW * HID;
+#if LANES > HID
+  return Prod{Wl, Wl + LANES * HID, l == a.cat ? 2 : 1, l == 0, true, tail};
+#else
   return Prod{Wl, Wl + LANES * HID, l == a.cat ? 2 : 1, l == 0, true};
+#endif
 }
 
 __device__ __forceinline__ Prod prod_vchain(const Args &a, int l) {
@@ -640,15 +724,26 @@ __device__ __forceinline__ Prod prod_vchain(const Args &a, int l) {
               (l == 0 && a.cat < a.L - 1) ? 2 : 1, false, false};
 }
 
+#if LANES > HID
+// The v-chain's layer-0 product over the PE's columns c0.. (rows c0.. of
+// both segments' weights): the 384-lane build's passes at c0 = 0 and 256.
+__device__ __forceinline__ Prod prod_vchain0(const Args &a, int c0) {
+  Prod p = prod_vchain(a, 0);
+  p.W0 += (size_t)c0 * HID;
+  p.W1 += (size_t)c0 * HID;
+  return p;
+}
+#endif
+
 __device__ __forceinline__ Prod prod_back(const Args &a, int l) {
   return Prod{a.W + (size_t)l * CATW * HID, nullptr, 1, false, false};
 }
 
 // Lane j of the pe tile from the streamed plane pe_in [N, E] (zero past
 // row N and column E) into pe32 (f32 scratch), peb (op_t dW operand, when
-// given), X and X2.
+// given) and, with to_tile (lanes j < 256), X and X2.
 __device__ __forceinline__ void pe_stream_lane(const Args &a, const Tile &t,
-                                               int j) {
+                                               int j, bool to_tile) {
   for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
     float pe[ROWS_IN_FLIGHT];
 #pragma unroll
@@ -663,18 +758,20 @@ __device__ __forceinline__ void pe_stream_lane(const Args &a, const Tile &t,
       a.pe32[o] = pe[k];
       const op_t pb = to_op(pe[k]);
       if (a.peb) a.peb[o] = pb;
-      t.X[r * LDX + j] = pb;
-      t.X2[r * LDX + j] = pb;
+      if (to_tile) {
+        t.X[r * LDX + j] = pb;
+        t.X2[r * LDX + j] = pb;
+      }
     }
   }
 }
 
-// The pe tile, a lane a thread (and the lanes past 256 by the first
-// threads again).
+// The pe tile, a lane a thread (and the lanes past 256, the stash's
+// alone, by the first threads again).
 __device__ __forceinline__ void tile_pe_stream(const Args &a, const Tile &t) {
-  pe_stream_lane(a, t, t.tid);
+  pe_stream_lane(a, t, t.tid, true);
 #if LANES > HID
-  if (t.tid < LANES - NTHR) pe_stream_lane(a, t, t.tid + NTHR);
+  if (t.tid < LANES - NTHR) pe_stream_lane(a, t, t.tid + NTHR, false);
 #endif
   __syncthreads();
 }
@@ -689,14 +786,15 @@ __device__ __forceinline__ void tile_forward(const Args &a, const Tile &t,
   const int nh = a.L - 1;
   const size_t plane = (size_t)a.NP * HID;
   float acc[4][4][4];
-  ring_prime<false>(prod_fwd(a, 0), t);
+  ring_prime<false>(prod_fwd(a, 0, a.peb), t);
   for (int l = 0; l < nh; l++) {
     acc_zero(acc);
-    mm_stream<false, 4, false>(acc, acc, t.X, t.X2, prod_fwd(a, l), 0, t);
+    mm_stream<false, 4, false>(acc, acc, t.X, t.X2, prod_fwd(a, l, a.peb), 0,
+                               t);
     __syncthreads();
-    if (l + 1 < nh) ring_prime<false>(prod_fwd(a, l + 1), t);
+    if (l + 1 < nh) ring_prime<false>(prod_fwd(a, l + 1, a.peb), t);
     else if (then_vchain) ring_prime<true>(prod_vchain(a, nh - 1), t);
-    else ring_prime<false>(prod_fwd(a, 0), t);
+    else ring_prime<false>(prod_fwd(a, 0, a.m0b), t);
     const bool last = l == nh - 1;
     float2 bias[4];
 #pragma unroll
@@ -744,10 +842,66 @@ __device__ __forceinline__ void tile_head(const Args &a, const Tile &t,
   __syncthreads();
 }
 
+#if LANES > HID
+// The spatial gradient's part from one pass of the v-chain's layer-0
+// product (the 384-lane build): acc holds vpe = d raw / d pe of rows 16 i
+// + g (+ 8) at columns c0 + 8 NT warp + 8 jn + 2 q (+ 1). An m-tile at a
+// time, the sum over the thread's columns of cb * vpe * T_k (IEEE f32, in
+// a fixed order), then over the quad's four lanes; lane q keeps m-tile q's
+// rows, 16 q + g + 8 h, in out[3 h + k].
+template <int NT>
+__device__ __forceinline__ void vpe_contract(const Args &a, const Tile &t,
+                                             const float (&acc)[4][NT][4],
+                                             int c0, float (&out)[6]) {
+  const int E = a.E, F = (E - 3) / 2;
+  const int cw = c0 + 8 * NT * t.warp + 2 * t.q;  // the thread's columns
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    float cb[2][NT][2];  // the loads of the m-tile's rows in flight together
+#pragma unroll
+    for (int h = 0; h < 2; h++)
+#pragma unroll
+      for (int jn = 0; jn < NT; jn++)
+#pragma unroll
+        for (int e = 0; e < 2; e++)
+          cb[h][jn][e] = cb_at(a.pe32 + (size_t)(t.r0 + 16 * i + t.g + 8 * h) *
+                                            LANES,
+                               cw + 8 * jn + e, E, F);
+    float s[2][3] = {};
+#pragma unroll
+    for (int jn = 0; jn < NT; jn++) {
+      float2 T[3];
+#pragma unroll
+      for (int k = 0; k < 3; k++)
+        T[k] = ld_f2(a.Tc + k * LANES + cw + 8 * jn);
+#pragma unroll
+      for (int h = 0; h < 2; h++)
+#pragma unroll
+        for (int e = 0; e < 2; e++) {
+          const float v = cb[h][jn][e] * acc[i][jn][2 * h + e];
+          s[h][0] += v * (e ? T[0].y : T[0].x);
+          s[h][1] += v * (e ? T[1].y : T[1].x);
+          s[h][2] += v * (e ? T[2].y : T[2].x);
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; h++)
+#pragma unroll
+      for (int k = 0; k < 3; k++) {
+        float v = s[h][k];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t.q == i) out[3 * h + k] = v;
+      }
+  }
+}
+#endif
+
 // Reverse v-chain, its first product primed by tile_forward: leaves vpe =
-// d raw / d pe (f32) in F. The skip layer's pe rows add their term to the
-// layer-0 product through X2. With then_tangent, primes the ring with the
-// tangent chain's first product.
+// d raw / d pe (f32) in F (at 384 lanes, each warp's partials of the
+// spatial gradient: vpe_contract). The skip layer's pe rows add their term
+// to the layer-0 product through X2. With then_tangent, primes the ring
+// with the tangent chain's first product.
 __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
                                             bool then_tangent) {
   const int nh = a.L - 1, j = t.tid;
@@ -776,7 +930,7 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
     mm_stream<true, 4, false>(acc, acc, t.X, t.X2, prod_vchain(a, l), 0, t);
     __syncthreads();
     if (l > 0) ring_prime<true>(prod_vchain(a, l - 1), t);
-    else if (then_tangent) ring_prime<false>(prod_fwd(a, 0), t);
+    else if (then_tangent) ring_prime<false>(prod_fwd(a, 0, a.m0b), t);
 #pragma unroll
     for (int i = 0; i < 4; i++) {
       float2 sv[2][4];
@@ -809,14 +963,14 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
     __syncthreads();
   }
 #else
-  // the hidden layers' products; layer 0's, LANES columns wide, apart
+  // the hidden layers' products; layer 0's, 384 columns wide, apart
   float acc[4][4][4];
   for (int l = nh - 1; l >= 1; l--) {
     acc_zero(acc);
     mm_stream<true, 4, false>(acc, acc, t.X, t.X2, prod_vchain(a, l), 0, t);
     __syncthreads();
     if (l > 1) ring_prime<true>(prod_vchain(a, l - 1), t);
-    else ring_prime<true, LANES>(prod_vchain(a, 0), t);
+    else ring_prime<true>(prod_vchain0(a, 0), t);
 #pragma unroll
     for (int i = 0; i < 4; i++) {
       float2 sv[2][4];
@@ -842,34 +996,50 @@ __device__ __forceinline__ void tile_vchain(const Args &a, const Tile &t,
     }
     __syncthreads();
   }
-  // layer 0: vpe over the PE's LANES columns, NT0 n-tiles a warp, into F
+  // layer 0, vpe over the PE's 384 columns in two passes (256 and 128
+  // columns, 4 and 2 n-tiles a warp), each contracted into the spatial
+  // gradient's partials where it is; the warp's partials of rows 16 q + g
+  // (+ 8), lane q's, into F for tile_spatial_grad
+  acc_zero(acc);
+  mm_stream<true, 4, false>(acc, acc, t.X, t.X2, prod_vchain0(a, 0), 0, t);
+  __syncthreads();
+  ring_prime<true, LANES - HID>(prod_vchain0(a, HID), t);
+  float part[6];
+  vpe_contract(a, t, acc, 0, part);
   {
-    constexpr int NT0 = LANES / 64;
-    float acc0[4][NT0][4];
-    acc_zero(acc0);
-    mm_stream<true, 4, false, NT0, LANES>(acc0, acc0, t.X, t.X2,
-                                          prod_vchain(a, 0), 0, t);
+    float acc1[4][(LANES - HID) / 64][4], part1[6];
+    acc_zero(acc1);
+    mm_stream<true, 4, false, (LANES - HID) / 64, LANES - HID>(
+        acc1, acc1, t.X, t.X2, prod_vchain0(a, HID), 0, t);
     __syncthreads();
-    if (then_tangent) ring_prime<false>(prod_fwd(a, 0), t);
+    if (then_tangent) ring_prime<false>(prod_fwd(a, 0, a.m0b), t);
+    vpe_contract(a, t, acc1, HID, part1);
 #pragma unroll
-    for (int i = 0; i < 4; i++)
+    for (int h = 0; h < 2; h++)
 #pragma unroll
-      for (int h = 0; h < 2; h++) {
-        const int r = 16 * i + t.g + 8 * h;
-#pragma unroll
-        for (int jn = 0; jn < NT0; jn++)
-          st_f2(t.F + r * LDO + t.warp * 8 * NT0 + 8 * jn + 2 * t.q,
-                acc0[i][jn][2 * h], acc0[i][jn][2 * h + 1]);
-      }
-    __syncthreads();
+      for (int k = 0; k < 3; k++)
+        t.F[(t.warp * 3 + k) * TM + 16 * t.q + t.g + 8 * h] =
+            part[3 * h + k] + part1[3 * h + k];
   }
+  __syncthreads();
 #endif
 }
 
-// Spatial gradient g[k] = <cb * vpe, T_k> (IEEE f32), vpe in F.
+// Spatial gradient g[k] = <cb * vpe, T_k> (IEEE f32), vpe in F; at 384
+// lanes, the sum of the warps' partials that tile_vchain left in F, in
+// warp order.
 __device__ __forceinline__ void tile_spatial_grad(const Args &a, const Tile &t,
                                                   float *g0, float *g1,
                                                   float *g2) {
+#if LANES > HID
+  if (t.tid < 3 * TM) {
+    const int k = t.tid / TM, r = t.tid % TM;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < NTHR / 32; w++) s += t.F[(w * 3 + k) * TM + r];
+    (k == 0 ? g0 : k == 1 ? g1 : g2)[r] = s;
+  }
+#else
   const int E = a.E, F = (E - 3) / 2;
   for (int q0 = 0; q0 < TM / 8; q0 += 4) {
     float cb[4][LANES / 32];  // the loads of four rows in flight together
@@ -900,6 +1070,7 @@ __device__ __forceinline__ void tile_spatial_grad(const Args &a, const Tile &t,
       if (t.lane == 0) { g0[r] = s0; g1[r] = s1; g2[r] = s2; }
     }
   }
+#endif
   __syncthreads();
 }
 
@@ -912,10 +1083,10 @@ __device__ __forceinline__ float sum_over_g(float v) {
 }
 
 // Lane j of the combined tangent m0 = [dg dxs | cb * (dg dproj2)] into
-// m0b, X and X2.
+// m0b and, with to_tile (lanes j < 256), X and X2.
 __device__ __forceinline__ void m0_lane(const Args &a, const Tile &t, int j,
                                         const float *dg0, const float *dg1,
-                                        const float *dg2) {
+                                        const float *dg2, bool to_tile) {
   const int E = a.E, F = (E - 3) / 2;
   const float t0 = a.Tc[j], t1 = a.Tc[LANES + j], t2 = a.Tc[2 * LANES + j];
   for (int rb = 0; rb < TM; rb += ROWS_IN_FLIGHT) {
@@ -931,8 +1102,10 @@ __device__ __forceinline__ void m0_lane(const Args &a, const Tile &t, int j,
       float m0 = j < 3 ? dgT : cb[k] * dgT;
       const op_t mb = to_op(m0);
       a.m0b[o] = mb;
-      t.X[r * LDX + j] = mb;
-      t.X2[r * LDX + j] = mb;
+      if (to_tile) {
+        t.X[r * LDX + j] = mb;
+        t.X2[r * LDX + j] = mb;
+      }
     }
   }
 }
@@ -952,9 +1125,9 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
   __shared__ float st_col[HID];  // sum over the tile's rows of the last t
 
   // ---- combined tangent m0 = [dg dxs | cb * (dg dproj2)] ----
-  m0_lane(a, t, j, dg0, dg1, dg2);
+  m0_lane(a, t, j, dg0, dg1, dg2, true);
 #if LANES > HID
-  if (j < LANES - NTHR) m0_lane(a, t, j + NTHR, dg0, dg1, dg2);
+  if (j < LANES - NTHR) m0_lane(a, t, j + NTHR, dg0, dg1, dg2, false);
 #endif
   __syncthreads();
 
@@ -964,9 +1137,10 @@ __device__ __forceinline__ void tile_param_vjp(const Args &a, const Tile &t,
     for (int l = 0; l < nh; l++) {
       const bool last = l == nh - 1;
       acc_zero(acc);
-      mm_stream<false, 4, false>(acc, acc, t.X, t.X2, prod_fwd(a, l), 0, t);
+      mm_stream<false, 4, false>(acc, acc, t.X, t.X2, prod_fwd(a, l, a.m0b),
+                                 0, t);
       __syncthreads();
-      if (!last) ring_prime<false>(prod_fwd(a, l + 1), t);
+      if (!last) ring_prime<false>(prod_fwd(a, l + 1, a.m0b), t);
       else ring_prime<true>(prod_back(a, nh - 1), t);
       float st[4][2] = {};
 #pragma unroll

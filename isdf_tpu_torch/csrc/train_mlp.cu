@@ -62,18 +62,19 @@
 // reverse-fused op (reverse_fused.cu). train_mlp_f32.cu builds this file
 // in the f32-product mode of mlp_tile.cuh (MLP_F32), isdf_tpu's
 // mm_dtype = float32 variant of the same kernel; train_mlp_384.cu builds
-// it for a PE of 384 lanes (MLP_LANES), one block per SM.
+// it for a PE of 384 lanes (MLP_LANES), two blocks an SM as at 256.
 
 #include "mlp_tile.cuh"
 
 enum { MODE_PC = 0, MODE_RAY = 1, MODE_STREAM = 2 };
 
-// Lane j of the tile's PE from its points (px, py, pz) into pe32, peb, X
-// and X2.
+// Lane j of the tile's PE from its points (px, py, pz) into pe32, peb and,
+// with to_tile (lanes j < 256), X and X2.
 static __device__ __forceinline__ void pe_lane(const Args &a, const Tile &t,
                                                const float *px,
                                                const float *py,
-                                               const float *pz, int j) {
+                                               const float *pz, int j,
+                                               bool to_tile) {
   const int E = a.E, F = (E - 3) / 2;
   const float m0 = a.Mc[j], m1 = a.Mc[LANES + j], m2 = a.Mc[2 * LANES + j],
               m3 = a.Mc[3 * LANES + j];
@@ -90,14 +91,16 @@ static __device__ __forceinline__ void pe_lane(const Args &a, const Tile &t,
     a.pe32[o] = pe;
     const op_t pb = to_op(pe);
     a.peb[o] = pb;
-    t.X[r * LDX + j] = pb;
-    t.X2[r * LDX + j] = pb;
+    if (to_tile) {
+      t.X[r * LDX + j] = pb;
+      t.X2[r * LDX + j] = pb;
+    }
   }
 }
 
 // Phase 1: one block per 64-row tile.
 template <int MODE>
-static __global__ void __launch_bounds__(NTHR, TILE_BLOCKS)
+static __global__ void __launch_bounds__(NTHR, MIN_BLOCKS)
     k_train_tile(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Tile t = tile_of(smem);
@@ -135,9 +138,9 @@ static __global__ void __launch_bounds__(NTHR, TILE_BLOCKS)
     tile_pe_stream(a, t);
   } else {
     // ---- positional encoding (IEEE f32, rounding as the eager version) ----
-    pe_lane(a, t, px, py, pz, j);
+    pe_lane(a, t, px, py, pz, j, true);
 #if LANES > HID
-    if (j < LANES - NTHR) pe_lane(a, t, px, py, pz, j + NTHR);
+    if (j < LANES - NTHR) pe_lane(a, t, px, py, pz, j + NTHR, false);
 #endif
   }
 

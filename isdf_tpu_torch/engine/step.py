@@ -84,7 +84,8 @@ import torch
 
 from isdf_tpu_torch.engine.buffer import FrameBuffer
 from isdf_tpu_torch.models import sdf_mlp as M
-from isdf_tpu_torch.models.cuda_mlp import HID, make_train_op, source, variant
+from isdf_tpu_torch.models.cuda_mlp import (HID, blocks_per_sm,
+                                            make_train_op, source, variant)
 from isdf_tpu_torch.models.cuda_reverse_fused import make_cuda_reverse_fused
 from isdf_tpu_torch.models.fused_adamw import make_fused_adamw
 from isdf_tpu_torch.models.fused_vjp import make_reverse_fused_mlp
@@ -211,15 +212,18 @@ class StepFunctions:
         self.uses_kernel = bool(self.kernel_sources)
         # what ``step.bundle`` records of the train op a step launches on
         # the card: its variant and lanes ("K1-ray/384"), and the shape of
-        # one call (points, embedding lanes, packed layers, surface points)
+        # one call (points, embedding lanes, packed layers, surface points);
+        # the first bundle adds the build's resident blocks an SM
+        # (``blocks_per_sm``), once its library has loaded
         self.bundle_counts = {}
+        self.k1_mode = None
         if fused and cuda:
             rays = cfg.window_size * cfg.n_rays
             budget = cfg.pc_surf_budget
+            self.k1_mode = ("K1-pc" if self.pc_in_kernel else
+                            "K1-ray" if cfg.pe_in_kernel else "K1-stream")
             self.bundle_counts = dict(
-                train_op=variant("K1-pc" if self.pc_in_kernel else
-                                 "K1-ray" if cfg.pe_in_kernel else
-                                 "K1-stream", model),
+                train_op=variant(self.k1_mode, model),
                 points=rays * cfg.n_samples_per_ray,
                 embedding=model.embedding_size, layers=model.n_layers,
                 surface=(min(rays, budget) if budget else rays)
@@ -526,6 +530,9 @@ class StepFunctions:
         with step_seed(seed, step0 + t). Traced, the call is the span
         ``step.bundle`` (utils/profiling.py): the interval the sim clock
         bills, with the train op's ``bundle_counts``."""
+        if self.k1_mode and "blocks_per_sm" not in self.bundle_counts:
+            self.bundle_counts["blocks_per_sm"] = blocks_per_sm(
+                self.k1_mode, self.model, self.device)
         with span("step.bundle", steps=n_steps, **self.bundle_counts):
             with span("step.table"):
                 table = step_table(n_steps, noise_std, lr_scale, buf.count,

@@ -42,6 +42,9 @@ tensors and launches the kernel for CUDA tensors; it never falls back.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
@@ -299,6 +302,29 @@ def variant(mode: str, model: SDFModel) -> str:
             f"/{pe_lanes(model)}")
 
 
+@functools.lru_cache(maxsize=None)
+def _occupancy(src: str, device_index: int):
+    """Resident blocks an SM of k_train_tile in modes pc, ray, stream, as
+    the library ``src``'s isdf_train_mlp_occupancy reads them on a card."""
+    with torch.cuda.device(device_index):
+        out = (ctypes.c_int * 4)()
+        fn = nvcc.load(src).isdf_train_mlp_occupancy
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"isdf_train_mlp_occupancy: CUDA error {rc}")
+    return tuple(out[:3])
+
+
+def blocks_per_sm(mode: str, model: SDFModel, device) -> int:
+    """Resident blocks an SM of K1's k_train_tile for ``mode`` ("K1-pc",
+    "K1-ray", "K1-stream") in this model's build on ``device``: read once a
+    library and card, then cached."""
+    index = torch.device(device).index or 0
+    return _occupancy(source("train_mlp", model), index)[MODES[mode]]
+
+
 def weight_args(params, model: SDFModel):
     """The weight pointers of the argument block: W (the planes [L, 2
     pe_lanes, 256] in the products' operand type: bf16, or f32 as they
@@ -326,16 +352,20 @@ def k1_geometry(N: int, L: int, f32: bool = False, lanes: int = HID) -> dict:
     rows of dW that wide). Also the mode's operand dtype (of the weights,
     the activation tiles and the dW operand planes) and the shared memory
     of each phase as csrc/mlp_tile.cuh lays it out (SMEM_DYN, SMEM_DW): the
-    activation tiles X and X2 (TM rows of ldx), the weight ring (nstage
-    stages of ``lanes`` rows of ks + 8), k_dw's ring (dw_stages stages of
-    the four operands' dw_ks rows of dw_ld; in the f32 mode two buffers of
-    the three bf16 planes a slab splits into), k_dw's grid (dw_tiles
-    output tiles a GEMM) and the static shared arrays of k_train_tile
-    (smem_static). The f32 mode's budget: X and X2 f32 (135,168 B) and a
-    ring of two f32 stages of 32 rows (81,920 B), one block per SM; k_dw's
-    two buffers of 16-row split planes (104,448 B). The 384-lane build's:
-    X and X2 at a stride of 392 (100,352 B) and a ring of two [384][40]
-    stages (61,440 B), one block per SM."""
+    activation tiles X and X2 (TM rows of ldx: 256 lanes at every lane
+    count), the weight ring (nstage stages of ``stage`` bytes, a
+    transposed slab of 256 rows of ks + 8), k_dw's ring (dw_stages stages
+    of the four operands' dw_ks rows of dw_ld; in the f32 mode two buffers
+    of the three bf16 planes a slab splits into), k_dw's grid (dw_tiles
+    output tiles a GEMM), the static shared arrays of k_train_tile
+    (smem_static) and the resident blocks an SM they leave room for
+    (blocks_per_sm). The bf16 budget: X and X2 (67,584 B) and a ring of
+    two stages (40,960 B), two blocks an SM at 256 and at 384 lanes. At
+    384 a stage holds, where a product reads the PE's lanes past 256, the
+    unpadded plain slab [ks][256] (wslab) and the A slab [TM][ks] of those
+    lanes (aslab) from the stash. The f32 mode's: X and X2 f32 (135,168
+    B) and a ring of two f32 stages of 32 rows (81,920 B), one block per
+    SM; k_dw's two buffers of 16-row split planes (104,448 B)."""
     assert lanes == HID or (lanes == K1_MAX_LANES and not f32), lanes
     nh = L - 1
     NP = _round_up(max(N, 1), TM)
@@ -352,8 +382,9 @@ def k1_geometry(N: int, L: int, f32: bool = False, lanes: int = HID) -> dict:
         dW=(L, 2 * P, HID), db=(L, HID))
     op_dtype = torch.float32 if f32 else torch.bfloat16
     esz = 4 if f32 else 2
-    ldx, ks, nstage, dw_ld = P + 8, 32, 2, 136
-    smem = (2 * TM * ldx + nstage * P * (ks + 8)) * esz
+    ldx, ks, nstage, dw_ld = HID + 8, 32, 2, 136
+    stage = HID * (ks + 8) * esz
+    smem = 2 * TM * ldx * esz + nstage * stage
     if f32:  # two buffers of a 16-row slab's three bf16 planes
         dw_stages, dw_ks = 2, 16
         smem_dw = dw_stages * 3 * 4 * dw_ks * dw_ld * 2
@@ -367,9 +398,10 @@ def k1_geometry(N: int, L: int, f32: bool = False, lanes: int = HID) -> dict:
                 shapes=shapes, dtypes=dtypes, op_dtype=op_dtype, ldx=ldx,
                 ks=ks, nstage=nstage, dw_stages=dw_stages, dw_ks=dw_ks,
                 dw_ld=dw_ld, smem=smem, smem_dw=smem_dw,
-                smem_static=smem_static, lanes=P,
+                smem_static=smem_static, lanes=P, stage=stage,
+                wslab=ks * HID * esz, aslab=TM * ks * esz if P > HID else 0,
                 dw_tiles=(P // 128) * (HID // 128),
-                blocks_per_sm=1 if f32 or P > HID else 2)
+                blocks_per_sm=1 if f32 else 2)
 
 
 def vjp_scratch(model: SDFModel, N: int, dev):

@@ -203,7 +203,22 @@ def test_wide_bundle_span_names_the_384_lane_op_on_card():
     assert spans and all(s.counts["train_op"] == "K1-pc/384"
                          and s.counts["embedding"] == 381
                          and s.counts["points"] == 5 * 200 * 27
-                         and s.counts["layers"] == 7 for s in spans)
+                         and s.counts["layers"] == 7
+                         and s.counts["blocks_per_sm"] == 2 for s in spans)
+
+
+@pytest.mark.cuda
+def test_k1_builds_hold_their_blocks_an_sm_on_card():
+    """isdf_train_mlp_occupancy: two resident blocks an SM of k_train_tile
+    in every mode at 256 lanes and in the 384-lane build (E = 381), one in
+    the f32-product mode."""
+    _need_card()
+    builds = [(TM.SDFModel(), 2),
+              (TM.SDFModel(embedding_size=381, max_deg=8), 2),
+              (TM.SDFModel(mm_precision="highest"), 1)]
+    for model, want in builds:
+        got = [K.blocks_per_sm(m, model, "cuda") for m in K.MODES]
+        assert got == [want] * 3, (K.source("train_mlp", model), got)
 
 
 @pytest.mark.cuda
@@ -247,10 +262,17 @@ def test_kernel_matches_plain_at_a_ragged_size_on_card(pc):
 
 
 @pytest.mark.cuda
-def test_kernel_is_deterministic_at_full_size_on_card():
-    """N = 27,000, the trainer's size: two calls give the same bits."""
+@pytest.mark.parametrize("lanes", [256, 384])
+def test_kernel_is_deterministic_at_full_size_on_card(lanes):
+    """N = 27,000, the trainer's size: two calls give the same bits, at 256
+    lanes and in the 384-lane build (E = 381)."""
     _need_card()
     model, params, T, x = _setup("cuda", R=1000)
+    if lanes == 384:
+        model = TM.SDFModel(embedding_size=381, max_deg=8)
+        params = TM.init_params(torch.Generator().manual_seed(0), model,
+                                device="cuda")
+    assert K.pe_lanes(model) == lanes
     op = K.make_train_op(model, **KW, pc_bounds=True)
     a = op(*_args(params, T, x, True))
     b = op(*_args(params, T, x, True))

@@ -246,8 +246,11 @@ def test_k1_takes_384_lanes_and_the_other_kernels_256():
 @pytest.mark.parametrize("N", [27000, 5373])
 def test_k1_geometry_at_384_lanes(N):
     """The 384-lane build: the PE's planes and layer 0's and the skip
-    layer's pe rows 384 wide, one block of X, X2 and a ring of [384][40]
-    stages an SM within 227 KB, k_dw's grid of six 128x128 tiles a GEMM."""
+    layer's pe rows 384 wide, k_dw's grid of six 128x128 tiles a GEMM; in
+    shared memory the 256-lane budget, two blocks an SM: X and X2 of the
+    PE's first 256 lanes and a ring of two stages, each a transposed slab
+    [256][40] or, where a product reads the lanes past 256, the unpadded
+    plain slab [32][256] and the A slab [64][32] of those lanes."""
     L = 7
     g = K.k1_geometry(N, L, lanes=384)
     base = K.k1_geometry(N, L)
@@ -258,10 +261,15 @@ def test_k1_geometry_at_384_lanes(N):
     assert g["shapes"]["dW"] == (L, 768, 256)
     for k in ("sig", "u", "h5", "hb", "tb", "dzb", "dub", "part_db"):
         assert g["shapes"][k] == base["shapes"][k]
-    assert g["ldx"] == 392 and g["smem"] == 100352 + 61440
-    assert g["smem"] + g["smem_static"] <= 227 * 1024
-    assert 2 * (g["smem"] + g["smem_static"] + 1024) > 228 * 1024
-    assert g["blocks_per_sm"] == 1 and base["blocks_per_sm"] == 2
+    assert g["ldx"] == base["ldx"] == 264
+    assert g["stage"] == base["stage"] == 256 * 40 * 2
+    assert (g["wslab"], g["aslab"], base["aslab"]) == (16384, 4096, 0)
+    assert g["wslab"] + g["aslab"] == g["stage"]
+    assert g["smem"] == base["smem"] == 2 * 64 * 264 * 2 + 2 * 20480 \
+        == 108544
+    # each of two blocks: dynamic, static and the 1 KB the SM reserves
+    assert g["smem"] + g["smem_static"] + 1024 <= 116736
+    assert g["blocks_per_sm"] == 2 and base["blocks_per_sm"] == 2
     assert g["dw_tiles"] == 6 and base["dw_tiles"] == 4
     assert g["smem_dw"] == base["smem_dw"]
     with pytest.raises(AssertionError):

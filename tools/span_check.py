@@ -15,8 +15,9 @@ every span the recorder kept (utils/profiling.recorded) to its
 name, the count, the largest start and end differences in us and how many
 pass 100 us. Each ``step.bundle`` span must name the train op it launched
 on the card, its variant and lanes (``train_op``, "K1-ray/384"), with the
-call's ``points``, ``embedding``, ``layers`` and ``surface``; on the CPU
-(the plain op) none names one. Exits 1 if a span of the lists below is
+call's ``points``, ``embedding``, ``layers`` and ``surface`` and the
+build's resident blocks an SM (``blocks_per_sm``); on the CPU (the plain
+op) none names one. Exits 1 if a span of the lists below is
 missing from its trace, a difference passes 100 us or a bundle's counts
 are wrong. ``--small`` runs a 64 x 48 camera on the CPU (a rehearsal).
 ``--cell NAME`` checks, instead, a traced window of the benchmark's
@@ -70,6 +71,9 @@ def bundle_errors(spans, on_card: bool):
             out.append(f"a bundle names no K1 variant: {c}")
         elif not all(isinstance(c.get(k), int) for k in SHAPE):
             out.append(f"a bundle lacks its op's shape: {c}")
+        elif not (isinstance(c.get("blocks_per_sm"), int)
+                  and c["blocks_per_sm"] >= 1):
+            out.append(f"a bundle lacks its build's blocks an SM: {c}")
     return sorted(set(out))
 
 
@@ -109,9 +113,11 @@ def report(part, trace_dir, want, on_card):
     bad = bundle_errors(spans, on_card)
     variants = sorted({str(s.counts.get("train_op")) for s in spans
                        if s.name == "step.bundle"})
+    blocks = sorted({str(s.counts.get("blocks_per_sm")) for s in spans
+                     if s.name == "step.bundle"})
     print(f"{part}: {sum(r[0] for r in rows.values())} spans, worst "
           f"start/end gap {worst:.1f} us; dropped {profiling.dropped()}; "
-          f"bundles' train_op {variants}")
+          f"bundles' train_op {variants}, blocks_per_sm {blocks}")
     for b in bad:
         print(f"  {b}")
     for name, (n, ds, de, over) in sorted(rows.items()):
@@ -121,7 +127,8 @@ def report(part, trace_dir, want, on_card):
         print(f"  missing: {missing}; without an event: {unmatched}")
     return {"part": part, "spans": rows, "missing": missing,
             "unmatched": unmatched, "worst_us": worst,
-            "train_op": variants, "bundle_errors": bad,
+            "train_op": variants, "blocks_per_sm": blocks,
+            "bundle_errors": bad,
             "ok": (not missing and not unmatched and worst <= TOL_US
                    and not bad)}
 

@@ -47,20 +47,22 @@ arena's fill count from its row of a small table on the device
 refinement tail's and, for an arena smaller than the window, the fill
 count) are its key.
 
-``mesh`` (parallel/mesh.py, a "dp" axis; isdf_tpu's ``build_step_functions(
-mesh=)``) shards the op's per-point work over the ray axis. Window
-selection, sampling, noise, the surface set and the bounds stay global on
-the mesh's first device, drawn exactly as without a mesh; then the fused
-op runs once per shard on that shard's contiguous rays (the global surface
-set, normaliser and weights given to every shard) and its sums and
-gradients are added in shard order (isdf_tpu's shard_map and psum,
-step.py:285-305). Without the fused op (a mesh and ``pe_in_kernel: false``,
-as isdf_tpu gates it) the spatial forward runs once per shard, on the card
-the reverse-fused op (K2 forward, K3 backward), and the losses on the whole
-batch; each shard's parameter gradient comes from leaves of its own and
-the gradients are added in shard order. The arena, parameters and
-optimiser state stay on the first device. So a mesh of N shards equals no
-mesh up to the order of the gradient sums.
+The step's per-point work runs over the shards of a "dp" mesh
+(parallel/mesh.py; isdf_tpu's ``build_step_functions(mesh=)``): the
+``mesh`` given, else a mesh of one shard on ``device``. Window selection,
+sampling, noise, the surface set and the bounds are global, on the mesh's
+first device; then the fused op runs once per shard on that shard's
+contiguous rays (the global surface set, normaliser and weights given to
+every shard) and its sums and gradients are added in shard order
+(isdf_tpu's shard_map and psum, step.py:285-305). Without the fused op
+the spatial forward runs once per shard, on the card the reverse-fused op
+(K2 forward, K3 backward), and the losses on the whole batch; each shard's
+parameter gradient comes from leaves of its own and the gradients are
+added in shard order. A mesh of several shards builds the fused op only
+with ``pe_in_kernel``, as isdf_tpu gates it. The arena, parameters and
+optimiser state stay on the first device. On one shard the cuts are views
+and the sums and gathers the shard's own tensors, so the one-shard step
+launches no kernel a mesh adds.
 
 On the card a bundle is one captured step replayed (isdf_tpu runs a bundle
 as one compiled ``lax.scan``): each key's first step runs eagerly, then is
@@ -72,7 +74,7 @@ replacing any of those tensors (a checkpoint load) drops them. On the CPU,
 with ``StepFunctions(eager=True)`` (the card's yardstick in tests and
 chip_smoke.py), or on a mesh across several cards (a capture records one
 card's stream), a bundle is a plain loop of steps. A mesh whose shards
-share one card is captured as no mesh is.
+share one card is captured as one shard is.
 """
 
 from __future__ import annotations
@@ -166,8 +168,9 @@ class StepFunctions:
                  mesh: PM.Mesh = None):
         self.cfg, self.model, self.H, self.W = cfg, model, H, W
         self.device = torch.device(device)
-        self.mesh = mesh
-        if mesh is not None and mesh.first != PM.Mesh([device]).first:
+        own = PM.Mesh([self.device])
+        self.mesh = own if mesh is None else mesh
+        if self.mesh.first != own.first:
             raise ValueError(f"the step runs on {self.device}, the mesh's "
                              f"first device is {mesh.first}")
         self.dirs = dirs_C_img.to(self.device)
@@ -176,10 +179,10 @@ class StepFunctions:
         cuda = self.device.type == "cuda"
         self.do_sdf_grad = cfg.eik_weight != 0 or cfg.grad_weight != 0
         # the fused train op where isdf_tpu builds its Pallas train op
-        # (a data-parallel mesh needs pe_in_kernel); its kernel needs hidden
-        # 256, its plain version runs at any width
+        # (a mesh of several shards needs pe_in_kernel); its kernel needs
+        # hidden 256, its plain version runs at any width
         fused = (cfg.grad_mode == "pallas" and self.do_sdf_grad
-                 and (mesh is None or cfg.pe_in_kernel)
+                 and (self.mesh.size == 1 or cfg.pe_in_kernel)
                  and (not cuda or model.hidden_size == HID)
                  and not model.gauss_embed)
         self.pc_in_kernel = (fused and cfg.pc_in_kernel and cfg.pe_in_kernel
@@ -232,9 +235,10 @@ class StepFunctions:
                                       b1=0.9, b2=0.999, eps=1e-8)
         # the graph route on the card; ``eager`` keeps the plain loop there
         self.eager = eager or not cuda
-        if cuda and mesh is not None and len(mesh.distinct) > 1:
+        n_cards = len(self.mesh.distinct)
+        if cuda and n_cards > 1:
             if not self.eager:
-                print(f"isdf_tpu_torch: the step across {len(mesh.distinct)}"
+                print(f"isdf_tpu_torch: the step across {n_cards}"
                       " cards runs eagerly (a CUDA graph captures one card's "
                       "stream)", file=sys.stderr, flush=True)
             self.eager = True
@@ -317,14 +321,12 @@ class StepFunctions:
         return scalars, ploss.reshape(R_, S_), grads
 
     def _shard_mapped(self, op, sharded, *args):
-        """``op``(*args) -> (sums, ploss, grads), on a mesh once per shard
-        (isdf_tpu step.py:285-305): the args at the positions in
-        ``sharded`` cut into the shards' contiguous rows, the others
-        replicated; sums and gradients added in shard order, ploss
-        concatenated in ray order, all on the first device."""
+        """``op``(*args) -> (sums, ploss, grads), once per shard (isdf_tpu
+        step.py:285-305): the args at the positions in ``sharded`` cut
+        into the shards' contiguous rows, the others replicated; sums and
+        gradients added in shard order, ploss gathered in ray order, all on
+        the first device."""
         mesh = self.mesh
-        if mesh is None:
-            return op(*args)
         shards = PM.split(mesh, *[args[i] for i in sorted(sharded)])
         reps = {i: PM.replicate(mesh, a) for i, a in enumerate(args)
                 if i not in sharded}
@@ -335,19 +337,17 @@ class StepFunctions:
                 outs.append(op(*[cut[i] if i in cut else reps[i][dev]
                                  for i in range(len(args))]))
         sums = PM.fixed_sum(mesh, [o[0] for o in outs])
-        ploss = torch.cat([o[1].to(mesh.first) for o in outs])
+        ploss = PM.gather(mesh, [o[1] for o in outs])
         grads = tuple(PM.fixed_sum(mesh, [o[2][j] for o in outs])
                       for j in range(len(outs[0][2])))
         return sums, ploss, grads
 
     def value_and_spatial_grad(self, params, pc, transform):
         """(sdf [R, S], d sdf / dx [R, S, 3]) differentiable in params
-        (isdf_tpu step.py:195-226). On a mesh ``params`` is a list of one
-        dict a shard (shard_leaves): shard k's rays go through the forward
-        on its device with its own dict."""
+        (isdf_tpu step.py:195-226). ``params`` is a list of one dict a
+        shard (shard_leaves): shard k's rays go through the forward on its
+        device with its own dict."""
         mesh = self.mesh
-        if mesh is None:
-            return self._value_and_spatial_grad(params, pc, transform)
         trans = PM.replicate(mesh, transform)
         outs = []
         for (pc_k,), p_k, dev in zip(PM.split(mesh, pc), params,
@@ -355,7 +355,7 @@ class StepFunctions:
             with PM.on(dev):
                 outs.append(self._value_and_spatial_grad(p_k, pc_k,
                                                          trans[dev]))
-        return tuple(torch.cat([o[j].to(mesh.first) for o in outs])
+        return tuple(PM.gather(mesh, [o[j] for o in outs])
                      for j in range(2))
 
     def _value_and_spatial_grad(self, params, pc, transform):
@@ -404,33 +404,25 @@ class StepFunctions:
                                surf=None, sv=None):
         """ray_batch_loss and its gradient in the packed planes (isdf_tpu
         step.py:428-436) -> (scalars, ploss [R, S], (dW, db[, dB])), dB
-        the Gaussian embedding's where the model has one. On a mesh each
-        shard differentiates leaves of its own (shard_leaves) and the
-        shards' gradients are added in shard order."""
+        the Gaussian embedding's where the model has one. Each shard
+        differentiates leaves of its own (shard_leaves) and the shards'
+        gradients are added in shard order."""
         leaves = self.shard_leaves(params)
         keys = [k for k in PARAM_KEYS if k in params]
         with torch.enable_grad():
             out = self.ray_batch_loss(
-                leaves if self.mesh is not None else leaves[0], transform,
-                pc, z_vals, dirs_C, dirs_W, depth, normals, valid, noise,
-                surf=surf, sv=sv)
+                leaves, transform, pc, z_vals, dirs_C, dirs_W, depth,
+                normals, valid, noise, surf=surf, sv=sv)
             flat = torch.autograd.grad(out.total,
                                        [p[k] for p in leaves for k in keys])
-        grads = tuple(flat[j::len(keys)] for j in range(len(keys)))
-        if self.mesh is not None:
-            grads = tuple(PM.fixed_sum(self.mesh, g) for g in grads)
-        else:
-            grads = tuple(g[0] for g in grads)
+        grads = tuple(PM.fixed_sum(self.mesh, flat[j::len(keys)])
+                      for j in range(len(keys)))
         scalars = {k: v.detach() for k, v in out.scalars.items()}
         return scalars, out.mat.detach(), grads
 
     def shard_leaves(self, params):
-        """One dict of autograd leaves a shard (one without a mesh): views
-        of the parameters on each shard's device, copied once per
-        distinct device."""
-        if self.mesh is None:
-            return [{k: v.detach().requires_grad_(True)
-                     for k, v in params.items()}]
+        """One dict of autograd leaves a shard: views of the parameters on
+        each shard's device, copied once per distinct device."""
         reps = PM.replicate(self.mesh, params)
         return [{k: v.detach().requires_grad_(True)
                  for k, v in reps[d].items()} for d in self.mesh.devices]

@@ -11,9 +11,8 @@ spent optimising, scaled by 1/frac_time_perception, advances
 On the card a bundle is billed its device time, read from CUDA events
 recorded around it on the stream (the reference's own timing,
 isdf/eval/metrics.py:13-38), a CUDA graph's capture included; on the CPU
-its wall time. Setting ``_per_step_device_s`` bills a fixed time per step
-instead, capped at the measured time unless ``_bill_exact`` pins the clock
-exactly (replays).
+its wall time. Setting ``_per_step_device_s`` bills exactly that time per
+step instead, which pins the clock (replays).
 
 ``incremental=False`` is the batch mode: the chosen views are loaded as
 keyframes at start and nothing is ingested later (reference
@@ -58,18 +57,10 @@ from isdf_tpu_torch.utils.device import resolve_device
 from isdf_tpu_torch.utils.profiling import BundleClock, StepTimer, span
 
 
-def pinned_dt(n_steps: int, measured: float, per_step_s: float,
-              exact: bool) -> float:
-    """The seconds a bundle of ``n_steps`` bills: its ``measured`` time,
-    or ``per_step_s`` a step where that is set (capped at the measured
-    time unless ``exact``); never below 10 us."""
-    if per_step_s:
-        dt = n_steps * per_step_s
-        if not exact:
-            dt = min(dt, measured)
-    else:
-        dt = measured
-    return max(dt, 1e-5)
+def pinned_dt(n_steps: int, measured: float, per_step_s: float) -> float:
+    """The seconds a bundle of ``n_steps`` bills: ``per_step_s`` a step
+    where that is set, else its ``measured`` time; never below 10 us."""
+    return max(n_steps * per_step_s if per_step_s else measured, 1e-5)
 
 
 def dp_mesh(cfg: Config, device):
@@ -210,7 +201,6 @@ class Trainer:
         self._kf_gen = torch.Generator(device=self.device)
         self._kf_gen.manual_seed(step_seed(seed, 0x4B46))
         self._per_step_device_s = 0.0   # > 0: bill this per step
-        self._bill_exact = False
         self.measured_s = 0.0   # summed measured bundle time (device on
         #                         the card), whatever the clock billed
 
@@ -469,8 +459,7 @@ class Trainer:
                     .numpy()
                 out = {k: stacked[i] for i, k in enumerate(names)}
                 measured = clock.seconds()
-                dt = pinned_dt(n_steps, measured, self._per_step_device_s,
-                               self._bill_exact)
+                dt = pinned_dt(n_steps, measured, self._per_step_device_s)
                 self._bill(dt, n_steps, measured)
             out["step_time_ms"] = np.full(n_steps, 1e3 * dt / n_steps)
             return out

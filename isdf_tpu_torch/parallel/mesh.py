@@ -101,7 +101,7 @@ def split(mesh: Mesh, *arrays) -> List[tuple]:
     """Each array's leading axis cut into the mesh's equal contiguous
     shards, shard k on device k: one tuple of slices per shard (the
     counterpart of ray_sharding's P("dp") and constrain_rays). A slice on
-    its own device is a view."""
+    its own device is a view, so one shard copies nothing."""
     n = arrays[0].shape[0]
     if n % mesh.size:
         raise ValueError(f"{n} rows do not divide into {mesh.size} shards")
@@ -112,7 +112,8 @@ def split(mesh: Mesh, *arrays) -> List[tuple]:
 
 def replicate(mesh: Mesh, x) -> Dict[torch.device, object]:
     """{device: x there} for each distinct device: x itself on the one it
-    lies on, one copy on each other. ``x``: a tensor or a dict of them."""
+    lies on, one copy on each other (none on a one-shard mesh). ``x``: a
+    tensor or a dict of them."""
     def to(d):
         if isinstance(x, dict):
             return {k: v.to(d) for k, v in x.items()}
@@ -123,11 +124,21 @@ def replicate(mesh: Mesh, x) -> Dict[torch.device, object]:
 def fixed_sum(mesh: Mesh, parts):
     """The sum of per-shard tensors on the mesh's first device, added in
     shard order 0, 1, ..., N-1 (the counterpart of psum): no atomics, so
-    two runs give the same bits."""
+    two runs give the same bits. One shard's part is returned itself."""
     acc = parts[0].to(mesh.first)
     for p in parts[1:]:
         acc = acc + p.to(mesh.first)
     return acc
+
+
+def gather(mesh: Mesh, parts):
+    """Per-shard tensors joined along their leading axis in shard order on
+    the mesh's first device (the counterpart of out_specs P("dp")). One
+    shard's part is returned itself: ``torch.cat`` of one tensor copies
+    it, which would add a kernel to every step of a one-shard mesh."""
+    if len(parts) == 1:
+        return parts[0].to(mesh.first)
+    return torch.cat([p.to(mesh.first) for p in parts])
 
 
 def on(device: torch.device):

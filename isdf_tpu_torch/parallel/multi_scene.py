@@ -120,9 +120,8 @@ class MultiSceneStepper:
             raise ValueError("the scenes must share one device")
         self.device = t0.device
         # > 0: bill this many seconds per step of a round instead of its
-        # measured time, capped by it unless _bill_exact (pinned_dt)
+        # measured time (pinned_dt)
         self._per_step_device_s = 0.0
-        self._bill_exact = False
         self.last_bundle_dt = 0.0   # seconds billed for the last round
         self.measured_s = 0.0       # summed measured device time of rounds
         self._names: List[str] = []
@@ -169,8 +168,7 @@ class MultiSceneStepper:
                         .cpu().numpy() if outs and names else np.zeros(0))
                 measured = clock.seconds()
                 self.measured_s += measured
-                dt = pinned_dt(n_steps, measured, self._per_step_device_s,
-                               self._bill_exact)
+                dt = pinned_dt(n_steps, measured, self._per_step_device_s)
                 self.last_bundle_dt = dt
 
             results, at = [], 0

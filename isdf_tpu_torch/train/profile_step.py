@@ -98,7 +98,7 @@ def profile(overrides=(), scenes: int = 1, eager: bool = False,
     trainers = [Trainer(cfg, seed=1 + i, eager=eager, device=devices)
                 for i in range(K)]
     stepper = MultiSceneStepper(trainers)
-    stepper._per_step_device_s, stepper._bill_exact = 1.0 / 300, True
+    stepper._per_step_device_s = 1.0 / 300
     multi_scene_loop(trainers, max_steps=warmup, stepper=stepper)
     n_calls = steps // bundle
     n = K * n_calls * bundle   # scene-steps timed

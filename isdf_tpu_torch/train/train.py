@@ -89,7 +89,6 @@ def main(argv=None):
                       device=parse_devices(args.device))
     if args.sim_dt is not None:
         trainer._per_step_device_s = args.sim_dt
-        trainer._bill_exact = True
     if args.load_checkpoint:
         trainer.load_checkpoint(args.load_checkpoint)
     ctx = (device_trace(args.trace) if args.trace

@@ -21,9 +21,8 @@ depth PNGs).
 
 The sequential byte work (PNG unfiltering, Huffman decoding and encoding)
 and the inverse DCT run in host C++ (``csrc/image_codec.cpp``, built by
-utils/native.py with g++); numpy does the rest. Without the native library
-numpy and Python compute the same bits, slowly; ``native.CALLS`` counts
-the images each path served ("image_codec" and "image_codec_numpy").
+utils/native.py with g++); numpy does the rest. Where the library does not
+build, reading or writing an image raises RuntimeError.
 """
 
 from __future__ import annotations
@@ -45,12 +44,12 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
 def _lib():
-    return native.load("image_codec")
-
-
-def _count(lib):
-    native.CALLS["image_codec" if lib is not None
-                 else "image_codec_numpy"] += 1
+    lib = native.load("image_codec")
+    if lib is None:
+        raise RuntimeError(
+            "utils/image_io.py: csrc/image_codec.cpp did not build (g++ is "
+            "needed to read and write PNG and JPEG)")
+    return lib
 
 
 def _ptr(a, ctype):
@@ -121,53 +120,12 @@ def _to_flags(img: np.ndarray, flags: int) -> np.ndarray:
 # PNG
 # ---------------------------------------------------------------------------
 
-def _unfilter_numpy(raw: np.ndarray, h: int, stride: int,
-                    bpp: int) -> np.ndarray:
-    rows = raw.reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int64)
-    for y in range(h):
-        ft, src = int(rows[y, 0]), rows[y, 1:].astype(np.int64)
-        if ft == 0:
-            cur = src
-        elif ft == 1:
-            # recon[x] = filt[x] + recon[x - bpp]: a running sum per lane
-            lanes = np.zeros(((stride + bpp - 1) // bpp) * bpp, np.int64)
-            lanes[:stride] = src
-            cur = np.cumsum(lanes.reshape(-1, bpp), axis=0).reshape(-1)
-            cur = cur[:stride] & 255
-        elif ft == 2:
-            cur = (src + prev) & 255
-        elif ft in (3, 4):
-            cur = np.zeros(stride, np.int64)
-            for x in range(stride):
-                a = cur[x - bpp] if x >= bpp else 0
-                b = prev[x]
-                if ft == 3:
-                    pred = (a + b) >> 1
-                else:
-                    c = prev[x - bpp] if x >= bpp else 0
-                    p = a + b - c
-                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                    pred = a if (pa <= pb and pa <= pc) else (
-                        b if pb <= pc else c)
-                cur[x] = (src[x] + pred) & 255
-        else:
-            raise ValueError(f"PNG: unknown filter type {ft}")
-        out[y] = cur
-        prev = cur
-    return out
-
-
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     raw = np.frombuffer(raw, np.uint8)
     if raw.size < h * (stride + 1):
         raise ValueError("PNG: image data is truncated")
     raw = np.ascontiguousarray(raw[:h * (stride + 1)])
     lib = _lib()
-    _count(lib)
-    if lib is None:
-        return _unfilter_numpy(raw, h, stride, bpp)
     out = np.empty((h, stride), np.uint8)
     rc = lib.png_unfilter(_ptr(raw, ctypes.c_uint8), h, stride, bpp,
                           _ptr(out, ctypes.c_uint8))
@@ -366,30 +324,8 @@ def _table_bytes(dc, ac) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JPEG: entropy decoding, inverse DCT (numpy/Python fallbacks beside the C)
+# JPEG: entropy decoding and the inverse DCT (in csrc/image_codec.cpp)
 # ---------------------------------------------------------------------------
-
-def _huff_codes(bits, vals):
-    """{(length, code): value} of a canonical table. A table with more
-    than 256 values, more codes of a length than it holds, or an all-ones
-    code raises, as libjpeg refuses it."""
-    if sum(bits) > 256:
-        raise ValueError("JPEG: bad Huffman table")
-    codes, code, k = {}, 0, 0
-    for length in range(1, 17):
-        for _ in range(bits[length - 1]):
-            codes[(length, code)] = vals[k]
-            code += 1
-            k += 1
-        if code >= 1 << length:
-            raise ValueError("JPEG: bad Huffman table")
-        code <<= 1
-    return codes
-
-
-def _extend(v: int, s: int) -> int:
-    return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
-
 
 def _segment_end(data: bytes, start: int) -> int:
     """Index of the first marker after ``start`` that is not RSTn."""
@@ -405,124 +341,10 @@ def _segment_end(data: bytes, start: int) -> int:
         return i
 
 
-def _decode_scan_python(seg: bytes, n_units, units_blocks, block_comp,
-                        tables, restart) -> np.ndarray:
-    n_comp = len(tables) // 544
-    dcs, acs = [], []
-    for c in range(n_comp):
-        tb = [int(v) for v in tables[544 * c:544 * (c + 1)]]
-        dcs.append(_huff_codes(tb[:16], tb[16:272]))
-        acs.append(_huff_codes(tb[272:288], tb[288:]))
-    # split at RSTn markers, undo the byte stuffing, one bit string each
-    parts, i, start = [], 0, 0
-    while True:
-        j = seg.find(b"\xff", i)
-        if j < 0 or j + 1 >= len(seg):
-            parts.append(seg[start:])
-            break
-        if 0xD0 <= seg[j + 1] <= 0xD7:
-            parts.append(seg[start:j])
-            start = i = j + 2
-        else:
-            i = j + 2
-    parts = [p.replace(b"\xff\x00", b"\xff") for p in parts]
-    out = np.zeros((n_units * units_blocks, 64), np.int16)
-    part_ix, bits, pos, pred = -1, "", 0, [0] * 4
-
-    def read(n):
-        nonlocal pos
-        s = bits[pos:pos + n]
-        pos += n
-        return int(s.ljust(n, "0"), 2) if n else 0
-
-    def decode(codes):
-        nonlocal pos
-        code = 0
-        for length in range(1, 17):
-            code = (code << 1) | (int(bits[pos]) if pos < len(bits) else 0)
-            pos += 1
-            v = codes.get((length, code))
-            if v is not None:
-                return v
-        raise ValueError("JPEG: bad Huffman code")
-
-    blk_ix = 0
-    for u in range(n_units):
-        if u == 0 or (restart > 0 and u % restart == 0):
-            part_ix += 1
-            if part_ix >= len(parts):
-                raise ValueError("JPEG: missing restart marker")
-            p = parts[part_ix]
-            bits = bin(int.from_bytes(p, "big"))[2:].zfill(8 * len(p)) \
-                if p else ""
-            pos, pred = 0, [0] * 4
-        for b in range(units_blocks):
-            c = block_comp[b]
-            blk = out[blk_ix]
-            blk_ix += 1
-            t = decode(dcs[c])
-            pred[c] += _extend(read(t), t) if t else 0
-            blk[0] = pred[c]
-            k = 1
-            while k < 64:
-                rs = decode(acs[c])
-                r, s = rs >> 4, rs & 15
-                if s:
-                    k += r
-                    if k > 63:
-                        raise ValueError("JPEG: bad AC run")
-                    blk[ZIGZAG[k]] = _extend(read(s), s)
-                    k += 1
-                elif r == 15:
-                    k += 16
-                else:
-                    break
-    return out
-
-
-def _idct_islow_numpy(coefs: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """libjpeg's jpeg_idct_islow over blocks [N, 64] (natural order) with
-    quantiser q [64]: the same integer arithmetic as the C."""
-    x = coefs.astype(np.int64).reshape(-1, 8, 8) * q.astype(
-        np.int64).reshape(8, 8)
-
-    def pass_(v, shift, descale):
-        # v [..., 8] along the transformed axis
-        z2, z3 = v[..., 2], v[..., 6]
-        z1 = (z2 + z3) * 4433
-        tmp2 = z1 + z3 * -15137
-        tmp3 = z1 + z2 * 6270
-        tmp0 = (v[..., 0] + v[..., 4]) << 13
-        tmp1 = (v[..., 0] - v[..., 4]) << 13
-        t10, t13, t11, t12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, \
-            tmp1 - tmp2
-        o0, o1, o2, o3 = v[..., 7], v[..., 5], v[..., 3], v[..., 1]
-        z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
-        z5 = (z3 + z4) * 9633
-        o0, o1, o2, o3 = o0 * 2446, o1 * 16819, o2 * 25172, o3 * 12299
-        z1, z2 = z1 * -7373, z2 * -20995
-        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
-        o0 += z1 + z3
-        o1 += z2 + z4
-        o2 += z2 + z3
-        o3 += z1 + z4
-        r = 1 << (descale - 1)
-        return np.stack([t10 + o3, t11 + o2, t12 + o1, t13 + o0,
-                         t13 - o0, t12 - o1, t11 - o2, t10 - o3],
-                        axis=-1) + r >> descale
-
-    cols = pass_(np.swapaxes(x, 1, 2), None, 11)      # [N, col, row]
-    rows = pass_(np.swapaxes(cols, 1, 2), None, 18)   # [N, row, col]
-    return np.clip(rows + 128, 0, 255).astype(np.uint8)
-
-
 def _decode_scan(lib, data, start, n_units, units_blocks, block_comp,
                  tables, restart):
     end = _segment_end(data, start)
     seg = data[start:end]
-    if lib is None:
-        return _decode_scan_python(seg, n_units, units_blocks, block_comp,
-                                   tables, restart), end
     out = np.empty((n_units * units_blocks, 64), np.int16)
     buf = np.frombuffer(seg, np.uint8)
     bc = np.asarray(block_comp, np.uint8)
@@ -537,8 +359,6 @@ def _decode_scan(lib, data, start, n_units, units_blocks, block_comp,
 
 
 def _idct(lib, coefs: np.ndarray, q: np.ndarray) -> np.ndarray:
-    if lib is None:
-        return _idct_islow_numpy(coefs, q)
     coefs = np.ascontiguousarray(coefs, np.int16).reshape(-1, 64)
     q = np.ascontiguousarray(q, np.uint16)
     out = np.empty((coefs.shape[0], 64), np.uint8)
@@ -749,7 +569,6 @@ def _decode_jpeg(data: bytes, flags: int) -> np.ndarray:
                     o += h * v
     if frame is None or not comp_q:
         raise ValueError("JPEG: no frame or no scan (truncated file?)")
-    _count(lib)
     planes = []
     for k, (_cid, h, v, _tq) in enumerate(frame["comps"]):
         c = coefs[k]
@@ -808,52 +627,6 @@ def _blocks(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
     return qz.astype(np.int16)
 
 
-def _encode_scan_python(blocks, units_blocks, block_comp, tables) -> bytes:
-    n_comp = len(tables) // 544
-    enc = []
-    for c in range(n_comp):
-        tb = [int(v) for v in tables[544 * c:544 * (c + 1)]]
-        pair = []
-        for bits, vals in ((tb[:16], tb[16:272]), (tb[272:288], tb[288:])):
-            codes = {v: (length, code)
-                     for (length, code), v in _huff_codes(bits, vals).items()}
-            pair.append(codes)
-        enc.append(pair)
-    out, pred = [], [0] * 4
-
-    def put(code_len, v, s):
-        length, code = code_len
-        out.append(format(code, f"0{length}b"))
-        if s:
-            out.append(format(v if v >= 0 else v - 1 + (1 << s), f"0{s}b"))
-
-    for i, blk in enumerate(blocks.reshape(-1, 64)):
-        c = block_comp[i % units_blocks]
-        dct, act = enc[c]
-        diff = int(blk[0]) - pred[c]
-        pred[c] = int(blk[0])
-        s = abs(diff).bit_length()
-        put(dct[s], diff, s)
-        run = 0
-        for k in range(1, 64):
-            v = int(blk[ZIGZAG[k]])
-            if v == 0:
-                run += 1
-                continue
-            while run > 15:
-                put(act[0xF0], 0, 0)
-                run -= 16
-            s = abs(v).bit_length()
-            put(act[(run << 4) | s], v, s)
-            run = 0
-        if run:
-            put(act[0x00], 0, 0)
-    bits = "".join(out)
-    bits += "1" * (-len(bits) % 8)
-    raw = int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
-    return raw.replace(b"\xff", b"\xff\x00")
-
-
 def encode_jpeg(img: np.ndarray) -> bytes:
     """Baseline JPEG bytes of uint8 grey (H, W) or BGR (H, W, 3): the
     standard tables at quality 95, chroma subsampled 2x2 (4:2:0), as cv2
@@ -903,23 +676,19 @@ def encode_jpeg(img: np.ndarray) -> bytes:
          _table_bytes(STD_DC_CHROMA, STD_AC_CHROMA)
          for _, _, _, tq in comps])
     lib = _lib()
-    _count(lib)
     n_units = scan.shape[0] // units_blocks
-    if lib is None:
-        body = _encode_scan_python(scan, units_blocks, block_comp, tables)
-    else:
-        # at most 208 bytes a block (11 + 11 DC bits, 63 x 26 AC bits),
-        # twice that with every byte stuffed
-        cap = scan.shape[0] * 512 + 4096
-        out = np.empty(cap, np.uint8)
-        bc = np.asarray(block_comp, np.uint8)
-        n = lib.jpeg_encode_scan(
-            _ptr(scan, ctypes.c_int16), n_units, units_blocks,
-            _ptr(bc, ctypes.c_uint8), len(comps),
-            _ptr(tables, ctypes.c_uint8), _ptr(out, ctypes.c_uint8), cap)
-        if n < 0:
-            raise RuntimeError("JPEG: entropy-coded data overflowed")
-        body = out[:n].tobytes()
+    # at most 208 bytes a block (11 + 11 DC bits, 63 x 26 AC bits), twice
+    # that with every byte stuffed
+    cap = scan.shape[0] * 512 + 4096
+    out = np.empty(cap, np.uint8)
+    bc = np.asarray(block_comp, np.uint8)
+    n = lib.jpeg_encode_scan(
+        _ptr(scan, ctypes.c_int16), n_units, units_blocks,
+        _ptr(bc, ctypes.c_uint8), len(comps),
+        _ptr(tables, ctypes.c_uint8), _ptr(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError("JPEG: entropy-coded data overflowed")
+    body = out[:n].tobytes()
 
     def seg(marker, payload):
         return bytes([0xFF, marker]) + struct.pack(">H", len(payload) + 2) \

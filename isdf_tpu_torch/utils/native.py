@@ -7,10 +7,10 @@ ctypes (isdf_tpu/utils/native.py).
 ``csrc/plot2d.cpp`` (the fill of vis/plot.py's 2-D figures) are
 compiled with -O3 into the port's build directory (utils/nvcc.py::
 build_dir, which .gitignore lists), keyed by the hash of the source.
-Without a compiler the mesh and codec callers fall back to their numpy
-implementations (the rasterisers have none and raise); ``CALLS`` counts
-the calls that the native library served (and, for the image codec, the
-ones numpy served), so a caller can tell which ran.
+Without a compiler marching tets falls back to its numpy implementation,
+as isdf_tpu's does, and ``CALLS`` counts the calls the native library
+served, so a caller can tell which ran; the codec and the rasterisers
+have no fallback and raise.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from isdf_tpu_torch.utils.nvcc import CSRC, build_dir
 
 _libs = {}
 _lock = threading.Lock()
-CALLS = {"marching_tets": 0, "image_codec": 0, "image_codec_numpy": 0}
+CALLS = {"marching_tets": 0}
 
 
 def load(name: str) -> Optional[ctypes.CDLL]:

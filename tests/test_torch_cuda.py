@@ -292,7 +292,6 @@ def test_trainer_launches_the_kernel_once_per_step_on_card():
     tr = Trainer(cfg)
     assert tr.device.type == "cuda" and tr.fns.uses_kernel
     tr._per_step_device_s = 1.0 / 300
-    tr._bill_exact = True
     n0 = K.LAUNCHES["K1-pc"]
     res = train_loop(tr, max_steps=40)
     assert K.LAUNCHES["K1-pc"] - n0 == res.steps == 40
@@ -453,7 +452,6 @@ def test_trainer_new_paths_launch_once_per_step_on_card(knobs, kernels):
                            kf_buffer_size=16, camera=cam, **knobs)
     tr = Trainer(cfg)
     tr._per_step_device_s = 1.0 / 300
-    tr._bill_exact = True
     counts = (K.LAUNCHES, CB.LAUNCHES, CRF.LAUNCHES)
     n0 = {k: v for d in counts for k, v in d.items()}
     res = train_loop(tr, max_steps=40)
@@ -731,7 +729,6 @@ def test_f32_trainer_launches_the_f32_kernel_once_per_step_on_card():
     tr = Trainer(cfg)
     assert tr.fns.kernel_sources == ["train_mlp_f32"]
     tr._per_step_device_s = 1.0 / 300
-    tr._bill_exact = True
     n0 = dict(K.LAUNCHES)
     res = train_loop(tr, max_steps=40)
     assert {k: K.LAUNCHES[k] - n0[k] for k in n0} == {
@@ -746,7 +743,7 @@ def _graph_trainer(eager, **knobs):
     cfg = Config().replace(dataset_format="synthetic", bounds_method="pc",
                            kf_buffer_size=7, camera=cam, **knobs)
     tr = Trainer(cfg, eager=eager)
-    tr._per_step_device_s, tr._bill_exact = 1.0 / 300, True
+    tr._per_step_device_s = 1.0 / 300
     return tr
 
 

@@ -139,7 +139,7 @@ def test_loop_do_eval_writes_the_protocol(tmp_path):
     tr = Trainer(_small(TConfig).replace(do_eval=True, eval_freq_s=0.25,
                                          hidden_feature_size=32),
                  dataset=ds, device="cpu", grid_dim=4)
-    tr._per_step_device_s, tr._bill_exact = 0.01, True
+    tr._per_step_device_s = 0.01
     res = train_loop(tr, max_steps=60, save_path=str(tmp_path))
     with open(tmp_path / "res.json") as f:
         saved = json.load(f)

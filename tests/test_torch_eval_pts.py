@@ -240,7 +240,7 @@ def test_loop_writes_vox_res(tmp_path):
                                   eval_samples=3000)
     tr = Trainer(cfg, dataset=ds, seed=1, device="cpu", grid_dim=8)
     assert tr.eval_times == [0.3, 0.6, 5.0]
-    tr._per_step_device_s, tr._bill_exact = 0.01, True
+    tr._per_step_device_s = 0.01
     train_loop(tr, max_steps=80, save_path=str(tmp_path))
     with open(tmp_path / "vox_res.json") as f:
         vox = json.load(f)

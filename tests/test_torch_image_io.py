@@ -8,8 +8,7 @@ depth undistortion against cv2 and isdf_tpu, on the CPU.
   cv2.imread; cv2 reads the port's files (quality 95, 4:2:0) within mean
   2 levels of the source; the standard tables equal the ones cv2 writes;
   oversubscribed and all-ones Huffman tables raise.
-* The native library and the numpy fallback give the same bits, and
-  native.CALLS tells which ran.
+* A codec whose native library did not build raises RuntimeError.
 * DepthTransform equals isdf_tpu's (with cv2) exactly on realsense.json's
   camera; INTER_AREA resizing equals cv2's at integer factors.
 """
@@ -42,14 +41,6 @@ def _image(H=48, W=64, seed=0, patches=True):
         img[H // 2:, W // 2:] = [220, 40, 140]
     img += rng.normal(0, 2.0, img.shape)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
-
-
-@pytest.fixture(params=["native", "numpy"])
-def numpy_codec_param(request, monkeypatch):
-    """The codec with its native library, then without it."""
-    if request.param == "numpy":
-        monkeypatch.setattr(native, "load", lambda name: None)
-    return request.param
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +116,7 @@ def _png_with_filters(img, depth, ctype):
 
 
 @pytest.mark.parametrize("kind", ["rgb8", "rgba8", "grey16"])
-def test_png_all_five_filters(tmp_path, kind, numpy_codec_param):
+def test_png_all_five_filters(tmp_path, kind):
     rng = np.random.default_rng(2)
     if kind == "grey16":
         img = rng.integers(0, 65535, (12, 17)).astype(np.uint16)
@@ -273,11 +264,11 @@ def test_jpeg_rejects_progressive(tmp_path):
 @pytest.mark.parametrize("table,bits0", [(0x00, 3), (0x11, 3), (0x00, 2)],
                          ids=["oversubscribed_dc_luma",
                               "oversubscribed_ac_chroma", "all_ones"])
-def test_jpeg_rejects_bad_huffman_tables(numpy_codec_param, table, bits0):
+def test_jpeg_rejects_bad_huffman_tables(table, bits0):
     """A DHT segment whose table (luma DC, or chroma AC, the last one the
     decoder builds) holds three codes of length 1, more than the length
     holds, or two, the second all ones, raises ValueError before any table
-    entry is written, on both paths."""
+    entry is written."""
     data = IO.encode_jpeg(_image())
     i = data.index(b"\xff\xc4")
     while data[i + 4] != table:
@@ -290,29 +281,19 @@ def test_jpeg_rejects_bad_huffman_tables(numpy_codec_param, table, bits0):
         IO.imdecode(bad)
 
 
-def test_native_and_numpy_paths_agree(tmp_path, monkeypatch):
-    """Every codec function gives the same bits without the native
-    library; native.CALLS counts which path served each image."""
-    img = _image(37, 53)
-    paths = {}
-    for name, params in (("a.jpg", JPEG_CASES["420"]),
-                         ("r.jpg", JPEG_CASES["restart"]),
-                         ("c.png", [])):
-        paths[name] = str(tmp_path / name)
-        cv2.imwrite(paths[name], img, params)
-    assert native.load("image_codec") is not None, "g++ build failed"
-    before = dict(native.CALLS)
-    native_out = {k: IO.imread(p) for k, p in paths.items()}
-    enc = {"colour": IO.encode_jpeg(img), "grey": IO.encode_jpeg(img[..., 0])}
-    assert native.CALLS["image_codec"] - before["image_codec"] == 5
-    assert native.CALLS["image_codec_numpy"] == before["image_codec_numpy"]
+@pytest.mark.parametrize("call", ["png_read", "jpeg_read", "jpeg_write"])
+def test_codec_without_its_library_raises(tmp_path, monkeypatch, call):
+    """Where csrc/image_codec.cpp did not build, a read or write raises
+    RuntimeError naming the source, as the rasterisers do."""
+    img = _image()
+    path = str(tmp_path / ("a.png" if call == "png_read" else "a.jpg"))
+    cv2.imwrite(path, img)
     monkeypatch.setattr(native, "load", lambda name: None)
-    for k, p in paths.items():
-        np.testing.assert_array_equal(IO.imread(p), native_out[k])
-    assert IO.encode_jpeg(img) == enc["colour"]
-    assert IO.encode_jpeg(img[..., 0]) == enc["grey"]
-    assert native.CALLS["image_codec_numpy"] \
-        - before["image_codec_numpy"] == 5
+    with pytest.raises(RuntimeError, match=r"csrc/image_codec\.cpp"):
+        if call == "jpeg_write":
+            IO.encode_jpeg(img)
+        else:
+            IO.imread(path)
 
 
 # ---------------------------------------------------------------------------

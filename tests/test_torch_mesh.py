@@ -214,7 +214,7 @@ def test_loop_writes_meshes_and_mesh_eval(tmp_path):
                                   save_period=0.3, mesh_eval=True,
                                   eval_freq_s=0.5)
     tr = Trainer(cfg, dataset=ds, seed=1, device="cpu", grid_dim=64)
-    tr._per_step_device_s, tr._bill_exact = 0.01, True
+    tr._per_step_device_s = 0.01
     res = train_loop(tr, max_steps=120, save_path=str(tmp_path))
     assert res.steps == 120 and abs(res.tot_step_time - 1.2) < 1e-6
     meshes = sorted(os.listdir(tmp_path / "meshes"))

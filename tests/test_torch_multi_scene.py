@@ -242,7 +242,7 @@ def test_joint_billing_and_the_rate_cap_floor():
     assert tr_a.tot_step_time == tr_b.tot_step_time
     assert tr_a.measured_s == tr_b.measured_s == stepper.measured_s
     # the pinned clock bills n_steps x the pin, once per scene
-    stepper._per_step_device_s, stepper._bill_exact = 0.01, True
+    stepper._per_step_device_s = 0.01
     t0 = tr_a.tot_step_time
     stepper.run_steps(10, n_actives=[3, 10])
     assert tr_a.tot_step_time - t0 == pytest.approx(0.1)
@@ -251,7 +251,6 @@ def test_joint_billing_and_the_rate_cap_floor():
     tr_a, tr_b = _make_pair(step_rate_cap=2.0)
     stepper = MultiSceneStepper([tr_a, tr_b])
     stepper._per_step_device_s = 1e-4   # far faster than the cap
-    stepper._bill_exact = True
     stepper.run_steps(4, n_actives=[4, 2])
     assert tr_a.tot_step_time == pytest.approx(4 / 2.0)
     assert tr_b.tot_step_time == pytest.approx(2 / 2.0)
@@ -421,9 +420,10 @@ def test_paired_two_scene_run_against_isdf_tpu():
             runs["jax_init"] = [jax.tree_util.tree_map(np.asarray, t.params)
                                 for t in trainers]
             stepper = JMS.MultiSceneStepper(trainers)
+            stepper._bill_exact = True   # isdf_tpu caps its pin otherwise
         else:
             stepper = MultiSceneStepper(trainers)
-        stepper._per_step_device_s, stepper._bill_exact = dt, True
+        stepper._per_step_device_s = dt
         losses = [[] for _ in trainers]
         run_steps = stepper.run_steps
 

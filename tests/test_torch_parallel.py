@@ -16,6 +16,9 @@ in turn and its sums added in shard order.
   functions); updated weights atol 1e-6 where |grad| > 1e-5; priorities
   rtol 1e-5. The unsharded counterparts' limits
   (tests/test_torch_nonfused.py, tests/test_torch_slice.py).
+* The step at dp = 1: a mesh of one shard, whose gathers and sums hand
+  back the op's own tensors (no copy kernel), on both fused routes and
+  the autograd one.
 * The trainer: tests/test_torch_parallel_trainer.py.
 """
 
@@ -274,3 +277,70 @@ def test_sharded_step_matches_jax_sharded_step(route):
     np.testing.assert_allclose(bt.loss_approx.numpy(),
                                np.asarray(bj2.loss_approx), rtol=1e-5,
                                atol=1e-7)
+
+
+# ------------------------------------------------- the step at dp = 1
+
+ONE_SHARD = {
+    "fused-pc": dict(bounds_method="pc"),
+    "fused-ray": dict(bounds_method="ray"),
+    "autograd": dict(bounds_method="pc", grad_mode="auto"),
+}
+
+
+@pytest.mark.parametrize("route", list(ONE_SHARD))
+def test_one_shard_step_returns_the_ops_own_tensors(route, monkeypatch):
+    """Without a mesh the step runs on a mesh of one shard, and what it
+    gathers and sums over that shard is the op's own output, uncopied:
+    the fused op's ploss and gradients, or the autograd route's forward
+    (sdf and spatial gradient) and parameter gradients. ``torch.cat`` of
+    one tensor copies it, which would add a kernel to every step."""
+    cfg = _cfg(TConfig, **ONE_SHARD[route])
+    tm = _model(cfg, TM)
+    rng = np.random.default_rng(7)
+    dirs = np.concatenate([rng.uniform(-0.5, 0.5, (H, W, 2)),
+                           np.ones((H, W, 1))], -1).astype(np.float32)
+    fns = StepFunctions(cfg, tm, H, W, torch.as_tensor(dirs), "cpu")
+    assert isinstance(fns.mesh, PM.Mesh) and fns.mesh.size == 1
+    assert fns.mesh.first == torch.device("cpu")
+    fused = route != "autograd"
+    assert (fns.train_op is not None) == fused
+
+    made, gathered, given = [], [], []
+
+    def spy(f, into):
+        def g(*a, **k):
+            out = f(*a, **k)
+            into.append(out)
+            return out
+        return g
+    if fused:
+        fns.train_op = spy(fns.train_op, made)
+    else:
+        fns._value_and_spatial_grad = spy(fns._value_and_spatial_grad, made)
+        fns.value_and_spatial_grad = spy(fns.value_and_spatial_grad,
+                                         gathered)
+        grads_made = []
+        monkeypatch.setattr(torch.autograd, "grad",
+                            spy(torch.autograd.grad, grads_made))
+    fns.update = lambda p, o, b, grads, ploss, *rest: given.append(
+        (grads, ploss))
+
+    _, bt = _arena(JB.make_buffer(C, H, W), TB.make_buffer(C, H, W))
+    gen = torch.Generator().manual_seed(3)
+    pt = TM.init_params(gen, tm)
+    ins = torch.tensor([0.1, 1.0, float(bt.count)])
+    fns.core(pt, TA.init_state(pt), bt, torch.as_tensor(_transform()), gen,
+             ins, tail=False)
+
+    (grads, ploss), = given
+    ptr = [t.data_ptr() for t in grads]
+    if fused:
+        (_, ploss_k, grads_k), = made
+        assert ploss.data_ptr() == ploss_k.data_ptr()
+        assert ptr == [t.data_ptr() for t in grads_k]
+    else:
+        (fwd,), (out,) = made, gathered
+        assert [t.data_ptr() for t in out] == [t.data_ptr() for t in fwd]
+        # the last autograd call is the parameter gradient's
+        assert ptr == [t.data_ptr() for t in grads_made[-1]]

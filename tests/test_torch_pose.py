@@ -276,7 +276,7 @@ def test_loop_runs_bursts_and_bills_them(pinned):
     tr = Trainer(_cfg(pose_skip_prop=0.0, pose_iters=3, n_rays=16,
                       hidden_feature_size=32), dataset=ds, seed=0,
                  device="cpu")
-    tr._per_step_device_s, tr._bill_exact = 0.001, True
+    tr._per_step_device_s = 0.001
     tr._pose_burst_device_s = pinned
     calls = []
     step = tr.refine_poses_step

@@ -213,7 +213,7 @@ def test_loop_writes_slices_at_each_save_mark(tmp_path):
                  dataset=SyntheticDataset(SyntheticScene(), n_frames=60,
                                           H=48, W=64),
                  seed=1, device="cpu", grid_dim=64)
-    tr._per_step_device_s, tr._bill_exact = 0.01, True
+    tr._per_step_device_s = 0.01
     marks = []
     orig = SL.write_slices
 

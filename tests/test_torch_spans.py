@@ -195,7 +195,7 @@ def test_a_tiny_train_loop_emits_its_spans_nested(fixture_cfg, tmp_path):
     tr = _trainer(fixture_cfg, "save.save_checkpoints=1",
                   "save.save_period=0.5", "model.refine_poses=1")
     # the sim clock pinned, so that the run takes the same path every time
-    tr._per_step_device_s, tr._bill_exact = 1.0 / 30, True
+    tr._per_step_device_s = 1.0 / 30
     save = tmp_path / "run"
     save.mkdir()
 

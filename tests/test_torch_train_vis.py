@@ -253,7 +253,7 @@ def _pin(monkeypatch, loop_mod, grid, seen=None):
     orig = loop_mod.train_loop
 
     def spy(trainer, **kw):
-        trainer._per_step_device_s, trainer._bill_exact = 0.004, True
+        trainer._per_step_device_s = 0.004
         trainer.grid_dim = grid
         if isinstance(getattr(type(trainer), "grid_pc", None), property):
             trainer._grid_pc = None
@@ -397,7 +397,7 @@ def test_monitor_leaves_the_training_bits(tmp_path, monkeypatch):
                       overrides=list(SETS))
     plain = Trainer(cfg, seed=1, device="cpu", grid_dim=16)
     os.makedirs(tmp_path / "p")
-    plain._per_step_device_s, plain._bill_exact = 0.004, True
+    plain._per_step_device_s = 0.004
     res = TL.train_loop(plain, max_steps=60, eval_hook=lambda tr: {},
                         save_path=str(tmp_path / "p"))
     assert res.steps == 60

@@ -236,7 +236,9 @@ def test_loop_per_step_matches_jax_schedule():
             ("torch", TTrainer, t_loop, dict(device="cpu"))):
         cfg = _small(JConfig if name == "jax" else TConfig).replace(**knobs)
         tr = cls(cfg, dataset=ds, seed=1, grid_dim=4, **kw)
-        tr._per_step_device_s, tr._bill_exact = 0.001, True
+        tr._per_step_device_s = 0.001
+        if name == "jax":   # isdf_tpu caps its pin otherwise
+            tr._bill_exact = True
         res = loop(tr, max_steps=215, bundle=False)
         out[name] = (res.steps, res.rounds, list(tr.frames.frame_ids))
     assert out["torch"] == out["jax"]

@@ -80,7 +80,7 @@ def walk_run(noise, refine, steps):
         f"dataset.pose_noise_std={noise}", "dataset.pose_noise_mode=walk",
         f"model.refine_poses={refine}"])
     tr = Trainer(cfg, seed=1)
-    tr._per_step_device_s, tr._bill_exact = 1.0 / 300, True
+    tr._per_step_device_s = 1.0 / 300
     tr._pose_burst_device_s = 0.0
     train_loop(tr, max_steps=steps)
     ds = tr.dataset
